@@ -7,16 +7,33 @@ Phases, each printing JSON lines:
   device   the card's name and power limit; TF32 switched off explicitly
   build    compile the hand-written kernels from `viewcrafter_tpu_torch/csrc`
   wiring   a small config whose every gate takes the kernels: `generate` on
-           the card against the same weights and noise on the CPU
+           the card against the same weights and noise on the CPU; three
+           times: default routes, both opt-in routes on, and routes on at 40
+           frames (where the temporal attentions leave the layer kernel for
+           `temporal_attention_fused`)
   main     `VideoDiffusionEngine.generate` on the flagship `viewcrafter_25`
-           (576x1024x25, B=1, K=2 CFG, 3 DDIM steps, seeded random weights):
-           stage times, peak memory, output checks, launches per UNet eval,
-           and a torch.profiler breakdown of one more UNet eval by kernel
-  kernels  each kernel against its plain torch twin at every input shape the
-           main phase launched it with: max_abs_err and rms_rel_err beside
+           (576x1024x25, B=1, K=2 CFG, 3 DDIM steps, seeded random weights),
+           default routes: stage times, peak memory, output checks, launches
+           per UNet eval, and a torch.profiler breakdown of one more UNet
+           eval by kernel
+  routes   the same through an engine built with cross_attn_impl="auto" and
+           gn_fused=True, 2 steps, with its own profile
+  pab      that engine through `generate_staged` with attn_reuse_interval=3
+           at the ds1 sites, 6 steps (two cells), cache stored as bf16 and as
+           f8: seconds per full and per reuse step, the cache's bytes
+  long     a 40-frame copy of `viewcrafter_25_512` (320x512), routes on,
+           2 steps: both temporal attentions of every block run
+           `temporal_attention_fused`
+  op       `fused_spatial_layer`, which no model calls, once at each of its
+           three flagship shapes
+  kernels  each kernel against its plain torch twin at every input shape any
+           phase above launched it with (all eight kernels, all paths, the
+           wiring runs included): max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
            function, or null), bound_ms
+Every phase that drives a path sets the launch counts to 0 just before it and
+reads them just after.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with no
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -32,6 +49,15 @@ import sys
 import time
 
 FLAGSHIP_STEPS = 3
+ROUTE_STEPS = 2
+PAB_STEPS, PAB_INTERVAL, PAB_SITES = 6, 3, ("down_0", "up_0", "init_attn")
+LONG_FRAMES = 40
+SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
+MAIN_KERNELS = ("temporal_conv3", "fused_ff_layer", "fullkv_attention", "fused_temporal_layer")
+# the path whose launch count a kernel's row reports
+ROW_PATH = {**{k: "main" for k in MAIN_KERNELS}, "group_norm_fused": "routes",
+            "dual_cross_attention": "routes", "temporal_attention_fused": "long",
+            "fused_spatial_layer": "op"}
 
 # dense bf16 tensor-core peak (TFLOP/s) and memory rate (TB/s) by card,
 # from NVIDIA's data sheets; matched against torch.cuda.get_device_name()
@@ -47,12 +73,20 @@ REPLACES = {
     "fused_ff_layer": "viewcrafter_tpu/ops/pallas/ff_layer.py:84",
     "fullkv_attention": "viewcrafter_tpu/ops/pallas/fullkv_attention.py:179",
     "fused_temporal_layer": "viewcrafter_tpu/ops/pallas/temporal_layer.py:127",
+    "group_norm_fused": "viewcrafter_tpu/ops/pallas/groupnorm.py:89",
+    "dual_cross_attention": "viewcrafter_tpu/ops/pallas/cross_attention.py:92",
+    "temporal_attention_fused": "viewcrafter_tpu/ops/pallas/temporal_attention.py:108",
+    "fused_spatial_layer": "viewcrafter_tpu/ops/pallas/spatial_layer.py:108",
 }
 SOURCES = {
     "temporal_conv3": "viewcrafter_tpu_torch/csrc/temporal_conv.cu",
     "fused_ff_layer": "viewcrafter_tpu_torch/csrc/ff_layer.cu",
     "fullkv_attention": "viewcrafter_tpu_torch/csrc/fullkv_attention.cu",
     "fused_temporal_layer": "viewcrafter_tpu_torch/csrc/temporal_layer.cu",
+    "group_norm_fused": "viewcrafter_tpu_torch/csrc/groupnorm.cu",
+    "dual_cross_attention": "viewcrafter_tpu_torch/csrc/cross_attention.cu",
+    "temporal_attention_fused": "viewcrafter_tpu_torch/csrc/temporal_attention.cu",
+    "fused_spatial_layer": "viewcrafter_tpu_torch/csrc/spatial_layer.cu",
 }
 
 
@@ -102,38 +136,43 @@ def nbytes(*ts) -> int:
 
 def kernel_sites(peaks, gen, sites):
     """Yield one result dict per (kernel, input shape) of `sites`, the shapes
-    the main phase launched each kernel with (`kernels.launch_sites()`)."""
+    the path phases launched each kernel with (`kernels.launch_sites()`)."""
     import torch
     import torch.nn.functional as F
 
-    from viewcrafter_tpu_torch.ops.kernels import ff_layer, fullkv_attention, temporal_conv
-    from viewcrafter_tpu_torch.ops.kernels import temporal_layer
+    from viewcrafter_tpu_torch.ops.kernels import (
+        cross_attention, ff_layer, fullkv_attention, groupnorm, spatial_layer,
+        temporal_attention, temporal_conv, temporal_layer)
 
     dev, bf = "cuda", torch.bfloat16
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def check(name, site, got, ref, kernel, plain, library, flops, nb, plain_reps=3):
+    def check(name, site, got, ref, kernel, plain, library, flops, nb, plain_reps=3,
+              max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7):
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+            raise AssertionError(f"{name} at {site}: {got.dtype} {tuple(got.shape)} against "
+                                 f"{ref.dtype} {tuple(ref.shape)}")
         diff, ref = got.float() - ref.float(), ref.float()
         # both sides round at the same points; a different f32 summation order
         # can flip a bf16 rounding, worth 2^-8 of the value: allow 4 such
         # roundings of the largest output, and an error RMS of 2^-7 of the
         # output's RMS (rounding flips alone stay near 2^-9; a systematic
-        # error of 1% does not)
-        err, tol = diff.abs().max().item(), 4 * 2.0 ** -8 * ref.abs().max().item()
+        # error of 1% does not). A float32 site passes its own, smaller limits.
+        err, tol = diff.abs().max().item(), max_rel * ref.abs().max().item()
         rms_rel = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
         del diff, ref
         res = {"phase": "kernel", "name": name, "site": list(site),
-               "main_path_launches": sites[name][site], "max_abs_err": err, "tol": tol,
-               "rms_rel_err": rms_rel, "rms_tol": 2.0 ** -7, "kernel_ms": time_ms(kernel),
+               "path_launches": sites[name][site], "max_abs_err": err, "tol": tol,
+               "rms_rel_err": rms_rel, "rms_tol": rms_tol, "kernel_ms": time_ms(kernel),
                "plain_ms": time_ms(plain, reps=plain_reps, warmup=1),
                "library_ms": time_ms(library) if library is not None else None,
                **bound(flops, nb, peaks)}
         emit(res)
-        if not (err <= tol and rms_rel <= 2.0 ** -7):  # also catches NaN
+        if not (err <= tol and rms_rel <= rms_tol):  # also catches NaN
             raise AssertionError(f"{name} at {site}: max_abs_err {err} (tol {tol}), "
-                                 f"rms_rel_err {rms_rel}")
+                                 f"rms_rel_err {rms_rel} (tol {rms_tol})")
         return res
 
     for site in sites["temporal_conv3"]:
@@ -196,15 +235,90 @@ def kernel_sites(peaks, gen, sites):
         del x, wqkv, wo, y, ref, args
     torch.cuda.empty_cache()
 
+    for site in sites["group_norm_fused"]:
+        n, s, c, itemsize, silu = site
+        dtype = bf if itemsize == 2 else torch.float32
+        x = randn(n, s, c, scale=1.5, dtype=dtype) + 0.3
+        w = 1 + randn(c, scale=0.1, dtype=torch.float32)
+        b = randn(c, scale=0.1, dtype=torch.float32)
+        args = (x, w, b, 32, 1e-5, bool(silu))
+        y = groupnorm.group_norm_fused(*args)
+        ref = groupnorm.group_norm_fused_plain(*args)
+        xcf, wl, bl = x.permute(0, 2, 1), w.to(dtype), b.to(dtype)  # channels-first view
+
+        def library(xcf=xcf, wl=wl, bl=bl, silu=silu):
+            out = F.group_norm(xcf, 32, wl, bl, 1e-5)
+            return F.silu(out) if silu else out
+        # float32 input rounds nowhere: kernel and twin differ by the order of
+        # their f32 sums and the kernel's fast exp in the SiLU
+        tols = {} if itemsize == 2 else {"max_rel": 2.0 ** -14, "rms_tol": 2.0 ** -16}
+        yield check("group_norm_fused", site, y, ref,
+                    lambda: groupnorm.group_norm_fused(*args),
+                    lambda: groupnorm.group_norm_fused_plain(*args), library,
+                    8.0 * n * s * c, nbytes(x, w, b, y), **tols)
+        del x, y, ref, xcf, args, library
+    torch.cuda.empty_cache()
+
+    for site in sites["dual_cross_attention"]:
+        b, s, h, d, lt, li = site
+        q = randn(b, s, h, d)
+        kt, vt, ki, vi = randn(b, lt, h, d), randn(b, lt, h, d), randn(b, li, h, d), randn(b, li, h, d)
+        args = (q, kt, vt, ki, vi)
+        y = cross_attention.dual_cross_attention(*args)
+        ref = cross_attention.dual_cross_attention_plain(*args)
+        tr = [a.transpose(1, 2) for a in args]
+
+        def library(tr=tr):
+            return (F.scaled_dot_product_attention(tr[0], tr[1], tr[2])
+                    + F.scaled_dot_product_attention(tr[0], tr[3], tr[4]))
+        yield check("dual_cross_attention", site, y, ref,
+                    lambda: cross_attention.dual_cross_attention(*args),
+                    lambda: cross_attention.dual_cross_attention_plain(*args), library,
+                    4.0 * b * h * s * (lt + li) * d, nbytes(*args, y), plain_reps=2)
+        del q, y, ref, tr, args, library
+
+    for site in sites["temporal_attention_fused"]:
+        b, t, s, h, d = site
+        q, k, v = randn(b, t, s, h, d), randn(b, t, s, h, d), randn(b, t, s, h, d)
+        y = temporal_attention.temporal_attention_fused(q, k, v)
+        ref = temporal_attention.temporal_attention_fused_plain(q, k, v)
+        pq, pk, pv = (a.permute(0, 2, 3, 1, 4) for a in (q, k, v))  # (B, S, H, T, D) views
+        yield check("temporal_attention_fused", site, y, ref,
+                    lambda: temporal_attention.temporal_attention_fused(q, k, v),
+                    lambda: temporal_attention.temporal_attention_fused_plain(q, k, v),
+                    lambda: F.scaled_dot_product_attention(pq, pk, pv),
+                    4.0 * b * s * h * t * t * d, nbytes(q, k, v, y))
+        del q, k, v, y, ref, pq, pk, pv
+
+    for site in sites["fused_spatial_layer"]:
+        b, s, h, d = site
+        c = h * d
+        x = randn(b, s, c, scale=0.5)
+        lw, lb = 1 + randn(c, scale=0.1, dtype=torch.float32), randn(c, scale=0.1, dtype=torch.float32)
+        wqkv, wo, bo = randn(3 * c, c, scale=c ** -0.5), randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
+        kw = dict(heads=h, dim_head=d)
+        args = (x, lw, lb, wqkv, wo, bo)
+        y = spatial_layer.fused_spatial_layer(*args, **kw)
+        ref = spatial_layer.fused_spatial_layer_plain(*args, **kw)
+        n = b * s
+        yield check("fused_spatial_layer", site, y, ref,
+                    lambda: spatial_layer.fused_spatial_layer(*args, **kw),
+                    lambda: spatial_layer.fused_spatial_layer_plain(*args, **kw), None,
+                    2.0 * n * c * 3 * c + 4.0 * b * h * s * s * d + 2.0 * n * c * c,
+                    nbytes(*args, y), plain_reps=2)
+        del x, wqkv, wo, y, ref, args
+    torch.cuda.empty_cache()
+
 
 # --------------------------------------------------------------------------
 # wiring and main path
 # --------------------------------------------------------------------------
 
 
-def wiring_config():
+def wiring_config(frames: int = 8):
     """A small ModelConfig whose UNet passes every kernel gate: head dim 64,
-    two levels, a 16x16 latent (S = 256 and 64) and T = 8."""
+    two levels, a 16x16 latent (S = 256 and 64) and `frames` frames (8: the
+    layer kernel's gate; 33 to 64: `temporal_attention_fused`'s)."""
     from viewcrafter_tpu_torch.config import (
         CLIPTextConfig, CLIPVisionConfig, DiffusionConfig, ModelConfig, ResamplerConfig,
         UNetConfig, VAEConfig)
@@ -214,69 +328,87 @@ def wiring_config():
         diffusion=DiffusionConfig(latent_size=(16, 16)),
         unet=UNetConfig(model_channels=64, num_res_blocks=1, attention_resolutions=(1, 2),
                         channel_mult=(1, 2), num_head_channels=64, context_dim=64,
-                        temporal_length=8),
+                        temporal_length=frames),
         vae=VAEConfig(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1),
         resampler=ResamplerConfig(dim=64, depth=1, dim_head=16, heads=4, num_queries=4,
                                   embedding_dim=48, output_dim=64, video_length=4),
         clip_text=CLIPTextConfig(width=64, heads=2, layers=2),
         clip_vision=CLIPVisionConfig(patch_size=56, width=48, heads=2, layers=2),
-        video_length=8, height=128, width=128,
+        video_length=frames, height=128, width=128,
     )
 
 
-def run_wiring(gen) -> dict:
+def route_kwargs(routes: bool) -> dict:
+    return {"cross_attn_impl": "auto", "gn_fused": True} if routes else {}
+
+
+def run_wiring(gen, routes: bool = False, frames: int = 8) -> tuple:
     """`generate` with every kernel on the card against the plain path on the
-    CPU: same weights, same noise. The yardstick for the tolerance is the CPU
-    run's own bf16 distance from its float32 run."""
+    CPU: same weights, same noise, same routes. The yardstick for the
+    tolerance is the CPU run's own bf16 distance from its float32 run.
+    Returns (result, launch sites)."""
     import torch
 
     from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, VideoDiffusionEngine
     from viewcrafter_tpu_torch.ops import kernels
 
-    cfg = wiring_config()
-    cuda = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cuda")
+    cfg = wiring_config(frames)
+    kw = route_kwargs(routes)
+    cuda = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cuda", **kw)
     cuda.init_params(seed=1)
     state = {n: {k: v.float().cpu() for k, v in getattr(cuda, n).state_dict().items()}
              for n in SUBMODELS}
-    ref32 = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu")
-    ref16 = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cpu")
+    ref32 = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu", **kw)
+    ref16 = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cpu", **kw)
     ref32.load_params(state)
     ref16.load_params(state)
-    frames = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
-                        device="cuda") * 2 - 1
+    frames_t = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
+                          device="cuda") * 2 - 1
     ids = cuda.prompt_ids("a rotating view of a scene", 1)
     uids = cuda.prompt_ids("", 1)
-    noise = cuda.draw_noise(frames.shape, 2, gen)
+    noise = cuda.draw_noise(frames_t.shape, 2, gen)
     kernels.reset_launches()
-    out = cuda.generate(frames, ids, uids, steps=2, noise=noise).cpu()
+    out = cuda.generate(frames_t, ids, uids, steps=2, noise=noise).cpu()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     cpu_noise = type(noise)(*(t.cpu() for t in (noise.x_T, noise.steps, noise.posterior)))
-    o32 = ref32.generate(frames.cpu(), ids.cpu(), uids.cpu(), steps=2, noise=cpu_noise)
-    o16 = ref16.generate(frames.cpu(), ids.cpu(), uids.cpu(), steps=2, noise=cpu_noise)
+    o32 = ref32.generate(frames_t.cpu(), ids.cpu(), uids.cpu(), steps=2, noise=cpu_noise)
+    o16 = ref16.generate(frames_t.cpu(), ids.cpu(), uids.cpu(), steps=2, noise=cpu_noise)
     # max and mean distance from the CPU float32 run, each held to twice the
     # CPU bf16 run's own distance (plus a floor)
     err, mean_err = (out - o32).abs().max().item(), (out - o32).abs().mean().item()
     yard, yard_mean = (o16 - o32).abs().max().item(), (o16 - o32).abs().mean().item()
     tol, mean_tol = 2 * yard + 1e-2, 2 * yard_mean + 1e-3
-    res = {"phase": "wiring", "shape": list(out.shape), "max_abs_err_vs_cpu_f32": err,
+    res = {"phase": "wiring", "routes": routes, "frames": frames, "shape": list(out.shape),
+           "max_abs_err_vs_cpu_f32": err,
            "mean_abs_err_vs_cpu_f32": mean_err, "cpu_bf16_vs_f32": yard,
            "cpu_bf16_vs_f32_mean": yard_mean, "tol": tol, "mean_tol": mean_tol,
            "max_abs_err_vs_cpu_bf16": (out - o16).abs().max().item(),
            "output_abs_mean": o32.abs().mean().item(), "launches": counts}
+    sites = kernels.launch_sites()
     emit(res)
     if not (err <= tol and mean_err <= mean_tol):
         raise AssertionError(f"wiring: card vs CPU f32 max {err} (tol {tol}), "
                              f"mean {mean_err} (tol {mean_tol})")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"wiring: kernels never launched: {missing}")
-    return res
+    # the kernels this configuration must reach: the four of the default
+    # route (the layer kernel only up to 32 frames), the two route kernels
+    # when asked for, the temporal attention kernel past 32 frames
+    expect = set(MAIN_KERNELS) - ({"fused_temporal_layer"} if frames > 32 else set())
+    if routes:
+        expect |= {"group_norm_fused", "dual_cross_attention"}
+    if frames > 32:
+        expect.add("temporal_attention_fused")
+    wrong = [k for k, v in counts.items() if (v > 0) != (k in expect)]
+    if wrong:
+        raise AssertionError(f"wiring: launches {counts} do not match the expected set "
+                             f"{sorted(expect)}: {wrong}")
+    return res, sites
 
 
 # kernel-name patterns of the profile phase's categories, tried in order
 PROFILE_CATEGORIES = (
-    ("port:fullkv", "vc::fullkv_kernel"), ("port:temporal_attention", "vc::temporal_attention"),
+    ("port:fullkv", "vc::fullkv_kernel"), ("port:temporal_attention", "vc::temporal_att"),
+    ("port:dual_cross_attention", "vc::dual_cross_kernel"), ("port:group_norm", "vc::gn_"),
     ("port:layernorm", "vc::ln_apply_kernel"), ("port:gemm", "vc::gemm_kernel"),
     ("cudnn_conv", "fprop"), ("cudnn_conv", "conv"), ("cublas_gemm", "gemm"),
     ("cublas_gemm", "nvjet"), ("softmax", "softmax"), ("reduce", "reduce"),
@@ -284,15 +416,15 @@ PROFILE_CATEGORIES = (
 )
 
 
-def profile_unet_eval(eng, frames, ids, uids, guidance, gen) -> dict:
-    """Device time by kernel of one flagship UNet eval (the K=2 batched
-    denoise call of one DDIM step), from torch.profiler."""
+def profile_unet_eval(eng, frames, ids, uids, guidance, gen, what: str) -> dict:
+    """Device time by kernel of one UNet eval (the K=2 batched denoise call
+    of one DDIM step), from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     z_cond = eng.encode_frames(frames)
     contexts = eng.build_contexts(frames, 0, ids, uids, guidance)
-    denoise = eng._denoise_fn(z_cond, contexts, float(eng.cfg.unet.default_fs), guidance)
+    denoise, _, _ = eng._denoise_fn(z_cond, contexts, float(eng.cfg.unet.default_fs), guidance)
     k = guidance.num_branches
     x_k = torch.randn(z_cond.shape, generator=gen, device="cuda").repeat(k, 1, 1, 1, 1)
     t_k = torch.full((k,), 999.0, device="cuda")
@@ -317,27 +449,32 @@ def profile_unet_eval(eng, frames, ids, uids, guidance, gen) -> dict:
         cats[cat] = cats.get(cat, 0.0) + ms
     device_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
-    return {"phase": "profile", "what": "one UNet eval, K=2 batched, flagship", "wall_ms": wall_ms,
+    return {"phase": "profile", "what": what, "wall_ms": wall_ms,
             "device_ms": device_ms, "idle_share": max(0.0, 1 - device_ms / wall_ms),
             "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
             "top": [[n[:100], v[0], v[1]] for n, v in top]}
 
 
-def run_main(gen) -> dict:
-    """The flagship main path through the entry points a user calls."""
+def drive(phase: str, cfg, gen, steps: int, routes: bool, profile_what=None, eng=None,
+          **staged):
+    """One path through the entry points a user calls: build the engine (or
+    take `eng`), reset the launch counts, run `generate` (or, with `staged`
+    arguments, `generate_staged`) for `steps` DDIM steps on seeded random
+    frames, read the counts, check the video. Returns (result, launch sites,
+    engine)."""
     import torch
 
-    from viewcrafter_tpu_torch.config import get_model_config
     from viewcrafter_tpu_torch.models.lvdm import VideoDiffusionEngine
     from viewcrafter_tpu_torch.ops import kernels
     from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
-    cfg = get_model_config("viewcrafter_25")
-    t0 = time.perf_counter()
-    eng = VideoDiffusionEngine(cfg)  # device=None: the card
-    eng.init_params(seed=0)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    setup_s = 0.0
+    if eng is None:
+        t0 = time.perf_counter()
+        eng = VideoDiffusionEngine(cfg, **route_kwargs(routes))  # device=None: the card
+        eng.init_params(seed=0)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
     frames = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
                         device="cuda") * 2 - 1
     ids = eng.prompt_ids("a rotating view of a scene", 1)
@@ -347,51 +484,144 @@ def run_main(gen) -> dict:
 
     def on_stage(name):
         torch.cuda.synchronize()
-        stamps.append((name, time.perf_counter()))
+        stamps.append((name, time.perf_counter(), kernels.launch_counts(), kernels.launch_sites()))
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t_start = time.perf_counter()
-    video = eng.generate(frames, ids, uids, steps=FLAGSHIP_STEPS, eta=1.0, guidance=guidance,
-                         generator=gen, on_stage=on_stage)
+    run = eng.generate_staged if staged else eng.generate
+    video = run(frames, ids, uids, steps=steps, eta=1.0, guidance=guidance, generator=gen,
+                on_stage=on_stage, **staged)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     counts = kernels.launch_counts()
     sites = kernels.launch_sites()
-    times = [t_start] + [t for _, t in stamps]
+    times = [t_start] + [stamp[1] for stamp in stamps]
+    step_kinds = [stamp[0] for stamp in stamps[1:-1]]
+    step_s = [times[i + 1] - times[i] for i in range(1, 1 + steps)]
+    # launches of the sampling steps alone (the VAE's GroupNorms run in
+    # prepare and decode), per UNet eval
+    per_eval = {k: (stamps[-2][2][k] - stamps[0][2][k]) / steps for k in counts}
+    step_sites = {k: {site: n - stamps[0][3][k].get(site, 0) for site, n in v.items()
+                      if n > stamps[0][3][k].get(site, 0)} for k, v in stamps[-2][3].items()}
     res = {
-        "phase": "main", "config": cfg.name, "frames": list(frames.shape),
-        "steps": FLAGSHIP_STEPS, "guidance_branches": guidance.num_branches,
-        "setup_s": setup_s, "prepare_s": times[1] - times[0],
-        "step_s": [times[i + 1] - times[i] for i in range(1, 1 + FLAGSHIP_STEPS)],
+        "phase": phase, "config": cfg.name, "frames": list(frames.shape), "routes": routes,
+        "steps": steps, "guidance_branches": guidance.num_branches,
+        "setup_s": setup_s, "prepare_s": times[1] - times[0], "step_kinds": step_kinds,
+        # the first step of a freshly built engine pays cuDNN's and the
+        # allocator's warm-up: the figure is the median of the later steps
+        "step_s": step_s, "s_per_step": statistics.median(step_s[1:] or step_s),
         "decode_s": times[-1] - times[-2], "total_s": t_end - t_start,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "output_shape": list(video.shape), "finite": bool(torch.isfinite(video).all()),
         "output_abs_mean": video.abs().mean().item(),
-        "launches": counts,
-        "launches_per_unet_eval": {k: v / FLAGSHIP_STEPS for k, v in counts.items()},
+        "launches": counts, "launches_per_unet_eval": per_eval,
         "sites": {k: [[list(site), n] for site, n in v.items()] for k, v in sites.items()},
     }
+    if staged:
+        res["staged"] = {k: (list(v) if isinstance(v, tuple) else v) for k, v in staged.items()}
+        for kind in ("full", "reuse"):
+            ts = [t for t, name in zip(step_s, step_kinds) if name == kind]
+            if ts:
+                res[f"s_per_{kind}_step"] = statistics.median(ts)
     emit(res)
-    emit(profile_unet_eval(eng, frames, ids, uids, guidance, gen))
+    if profile_what:
+        emit(profile_unet_eval(eng, frames, ids, uids, guidance, gen, profile_what))
     expect = [1, cfg.video_length, cfg.height, cfg.width, 3]
     if res["output_shape"] != expect or not res["finite"]:
-        raise AssertionError(f"main: output {res['output_shape']} finite={res['finite']}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main: kernels never launched: {missing}")
-    if counts["fullkv_attention"] != 15 * FLAGSHIP_STEPS:
-        raise AssertionError(f"main: fullkv launches {counts['fullkv_attention']} != 15 per eval")
+        raise AssertionError(f"{phase}: output {res['output_shape']} finite={res['finite']}")
+    return res, {"all": sites, "steps": step_sites}, eng
+
+
+def require_launches(phase: str, res: dict, expect: dict) -> None:
+    """Fail unless each kernel in `expect` was launched by the phase: exactly
+    the given number of times per UNet eval, or at least once for None; and
+    no kernel outside `expect` at all."""
+    per_eval, counts = res["launches_per_unet_eval"], res["launches"]
+    for name, n in counts.items():
+        if name not in expect:
+            if n:
+                raise AssertionError(f"{phase}: {name} launched {n} times, expected none")
+        elif n == 0 or (expect[name] is not None and per_eval[name] != expect[name]):
+            raise AssertionError(f"{phase}: {name} launched {per_eval[name]} per eval "
+                                 f"({n} in all), expected {expect[name]}")
+
+
+def cache_bytes(eng, gen, cache_dtype: str) -> dict:
+    """Size of the attention cache one full PAB step of the `pab` phase
+    collects (sites and bytes), from a denoise_full call of its own."""
+    import torch
+
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+
+    cfg, guidance = eng.cfg, GuidanceConfig()
+    f = cfg.vae.downsample_factor
+    shape = (1, cfg.video_length, cfg.height // f, cfg.width // f, cfg.vae.z_channels)
+    z_cond = torch.randn(shape, generator=gen, device="cuda")
+    contexts = torch.randn((2, 1, 77 + 256, cfg.unet.context_dim), generator=gen, device="cuda")
+    _, d_full, _ = eng._denoise_fn(z_cond, contexts, float(cfg.unet.default_fs), guidance,
+                                   cache_sites=PAB_SITES, cache_dtype=cache_dtype)
+    with torch.no_grad():
+        _, cache = d_full(z_cond.repeat(2, 1, 1, 1, 1), torch.full((2,), 999.0, device="cuda"))
+    return {"sites": len(cache), "gib": nbytes(*cache.values()) / 2 ** 30}
+
+
+def run_spatial_op(gen) -> tuple:
+    """`fused_spatial_layer` as the stand-alone op it is (no model calls it, in
+    either package): one call at each of its three flagship shapes."""
+    import torch
+
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.ops.kernels import spatial_layer
+
+    kernels.reset_launches()
+    outs = []
+    for b, s, h, d in SPATIAL_OP_SHAPES:
+        c = h * d
+
+        def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        y = spatial_layer.fused_spatial_layer(
+            randn(b, s, c, scale=0.5), 1 + randn(c, scale=0.1, dtype=torch.float32),
+            randn(c, scale=0.1, dtype=torch.float32), randn(3 * c, c, scale=c ** -0.5),
+            randn(c, c, scale=c ** -0.5), randn(c, scale=0.1), heads=h, dim_head=d)
+        torch.cuda.synchronize()
+        outs.append({"shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
+                     "abs_mean": y.float().abs().mean().item()})
+        del y
+    counts = kernels.launch_counts()
+    sites = {"all": kernels.launch_sites(), "steps": kernels.launch_sites()}
+    res = {"phase": "op", "op": "fused_spatial_layer", "outputs": outs, "launches": counts}
+    emit(res)
+    if counts["fused_spatial_layer"] != len(SPATIAL_OP_SHAPES) or not all(
+            o["finite"] and o["abs_mean"] > 0 for o in outs):
+        raise AssertionError(f"op: {res}")
+    torch.cuda.empty_cache()
     return res, sites
 
 
+def merge_sites(*site_maps) -> dict:
+    """Per kernel, the union of the input shapes several phases launched."""
+    merged = {}
+    for sites in site_maps:
+        for name, shapes in sites.items():
+            for shape, n in shapes.items():
+                merged.setdefault(name, {})
+                merged[name][shape] = merged[name].get(shape, 0) + n
+    return merged
+
+
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from viewcrafter_tpu_torch.config import get_model_config
         from viewcrafter_tpu_torch.ops import kernels
         from viewcrafter_tpu_torch.ops.kernels import _lib
     except ImportError as exc:
@@ -418,23 +648,92 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    run_wiring(gen)
-    main_res, sites = run_main(gen)
+    wiring_sites = [run_wiring(gen)[1], run_wiring(gen, routes=True)[1],
+                    run_wiring(gen, routes=True, frames=LONG_FRAMES)[1]]
+
+    flagship = get_model_config("viewcrafter_25")
+    main_res, main_sites, eng = drive("main", flagship, gen, FLAGSHIP_STEPS, routes=False,
+                                      profile_what="one UNet eval, K=2 batched, flagship")
+    # the default route launches what it launched before the opt-in routes
+    # existed, and none of their kernels
+    require_launches("main", main_res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
+                                        "fused_ff_layer": 33, "temporal_conv3": 88})
+    del eng
     torch.cuda.empty_cache()
+
+    routes_res, routes_sites, eng = drive(
+        "routes", flagship, gen, ROUTE_STEPS, routes=True,
+        profile_what="one UNet eval, K=2 batched, flagship, both routes on")
+    require_launches("routes", routes_res, {
+        "fullkv_attention": None, "fused_temporal_layer": 34, "fused_ff_layer": 33,
+        "temporal_conv3": 88, "group_norm_fused": None, "dual_cross_attention": None})
+    emit({"phase": "routes_vs_main", "main_s_per_step": main_res["s_per_step"],
+          "routes_s_per_step": routes_res["s_per_step"],
+          "main_prepare_decode_s": [main_res["prepare_s"], main_res["decode_s"]],
+          "routes_prepare_decode_s": [routes_res["prepare_s"], routes_res["decode_s"]],
+          "main_peak_mem_gib": main_res["peak_mem_gib"],
+          "routes_peak_mem_gib": routes_res["peak_mem_gib"]})
+
+    pab_sites = []
+    for cache_dtype in ("bf16", "f8"):
+        pab_res, sites, _ = drive(
+            f"pab_{cache_dtype}", flagship, gen, PAB_STEPS, routes=True, eng=eng,
+            attn_reuse_interval=PAB_INTERVAL, attn_reuse_sites=PAB_SITES,
+            attn_reuse_dtype=cache_dtype)
+        pab_sites.append(sites)
+        if pab_res["step_kinds"] != ["full", "reuse", "reuse"] * (PAB_STEPS // PAB_INTERVAL):
+            raise AssertionError(f"pab: step kinds {pab_res['step_kinds']}")
+        for k in ("group_norm_fused", "dual_cross_attention", "fullkv_attention"):
+            if pab_res["launches"][k] == 0:
+                raise AssertionError(f"pab: {k} never launched")
+        emit({"phase": "pab_cache", "dtype": cache_dtype, **cache_bytes(eng, gen, cache_dtype),
+              "s_per_full_step": pab_res["s_per_full_step"],
+              "s_per_reuse_step": pab_res["s_per_reuse_step"],
+              "routes_s_per_step": routes_res["s_per_step"]})
+    del eng
+    torch.cuda.empty_cache()
+
+    long_cfg = dataclasses.replace(get_model_config("viewcrafter_25_512"), name="long_clip_40",
+                                   video_length=LONG_FRAMES)
+    long_res, long_sites, eng = drive("long", long_cfg, gen, ROUTE_STEPS, routes=True)
+    require_launches("long", long_res, {
+        "fullkv_attention": None, "temporal_attention_fused": 34, "fused_ff_layer": 33,
+        "temporal_conv3": None, "group_norm_fused": None, "dual_cross_attention": None})
+    del eng
+    torch.cuda.empty_cache()
+
+    op_res, op_sites = run_spatial_op(gen)
+
+    # every kernel is held against its twin at every shape any driven path
+    # launched it with (the wiring runs included); GroupNorm also at one
+    # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
+    # path's launch count a kernel's row reports.
+    sites = merge_sites(*wiring_sites, *(s["all"] for s in (
+        main_sites, routes_sites, *pab_sites, long_sites, op_sites)))
+    sites["group_norm_fused"][(2, 9216, 320, 4, 1)] = 0
+    emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})
+    path_res = {"main": main_res, "routes": routes_res, "long": long_res, "op": op_res}
+    path_sites = {"main": main_sites, "routes": routes_sites, "long": long_sites, "op": op_sites}
+    path_steps = {"main": FLAGSHIP_STEPS, "routes": ROUTE_STEPS, "long": ROUTE_STEPS, "op": 1}
     results = {}
     for res in kernel_sites(peaks, gen, sites):
         results.setdefault(res["name"], []).append(res)
 
     rows = []
     for kname in kernels.KERNEL_MODULES:
-        # the row's times are those of the site that costs the main path the
-        # most (launches x bound); the per-eval sums cover every site
-        top = max(results[kname], key=lambda r: r["main_path_launches"] * r["bound_ms"])
-        per_eval = {key: sum(r["main_path_launches"] * r[key] for r in results[kname]) / FLAGSHIP_STEPS
+        # a row reports the launches of one path (ROW_PATH) and the times of
+        # the site that costs that path's sampling steps the most (launches x
+        # bound); the per-eval sums cover every site of those steps (the VAE's
+        # GroupNorms, in prepare and decode, are in `launches` only)
+        path = ROW_PATH[kname]
+        on_path = [dict(r, n=path_sites[path]["steps"][kname].get(tuple(r["site"]), 0))
+                   for r in results[kname]]
+        top = max(on_path, key=lambda r: r["n"] * r["bound_ms"])
+        per_eval = {key: sum(r["n"] * r[key] for r in on_path) / path_steps[path]
                     for key in ("kernel_ms", "bound_ms")}
         rows.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname], "replaces": REPLACES[kname],
-            "site": top["site"], "launches": main_res["launches"][kname],
+            "path": path, "site": top["site"], "launches": path_res[path]["launches"][kname],
             "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
             "max_err": max(r["max_abs_err"] for r in results[kname]),
             "ms": top["kernel_ms"], "kernel_ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
@@ -442,6 +741,8 @@ def main() -> int:
             "library_ms": top["library_ms"],
             "ms_per_unet_eval": per_eval["kernel_ms"], "bound_ms_per_unet_eval": per_eval["bound_ms"],
         })
+        if rows[-1]["launches"] <= 0:
+            raise AssertionError(f"{kname} was never launched on the {path} path")
     emit({"kernels": rows})
     emit({"phase": "end", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -12,13 +12,25 @@ Tolerance: both sides round at the same points; a different f32 summation
 order may flip a bf16 rounding (2^-8 of the value), so the largest error may
 be 4 * 2^-8 of the largest output, and the error's RMS 2^-7 of the output's
 RMS (rounding flips alone stay near 2^-9; a systematic error of 1% does not).
+GroupNorm on float32 input rounds nowhere: kernel and twin differ by the order
+of their f32 sums and by the kernel's fast exp in the SiLU, so the largest
+error may be 2^-14 of the largest output and the error's RMS 2^-16 of the
+output's RMS.
 """
 
 import pytest
 import torch
 
-from viewcrafter_tpu_torch.ops.kernels import ff_layer, fullkv_attention, temporal_conv
-from viewcrafter_tpu_torch.ops.kernels import temporal_layer
+from viewcrafter_tpu_torch.ops.kernels import (
+    cross_attention,
+    ff_layer,
+    fullkv_attention,
+    groupnorm,
+    spatial_layer,
+    temporal_attention,
+    temporal_conv,
+    temporal_layer,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,12 +48,13 @@ def _randn(gen, *shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def _assert_close(got, ref):
+def _assert_close(got, ref, max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7):
     torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
     diff, ref = got.float() - ref.float(), ref.float()
-    err, tol = diff.abs().max().item(), 4 * 2.0 ** -8 * ref.abs().max().item()
+    err, tol = diff.abs().max().item(), max_rel * ref.abs().max().item()
     rms_rel = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
-    assert err <= tol and rms_rel <= 2.0 ** -7, (err, tol, rms_rel)
+    assert err <= tol and rms_rel <= rms_tol, (err, tol, rms_rel)
 
 
 @pytest.mark.parametrize("shape", [(1, 5, 24, 64, 64), (2, 25, 40, 320, 320), (1, 3, 8, 64, 128)])
@@ -85,6 +98,63 @@ def test_temporal_layer_kernel(gen, b, t, s, h, d):
                   temporal_layer.fused_temporal_layer_plain(*args, heads=h, dim_head=d))
 
 
+@pytest.mark.parametrize("n,s,c,dtype,silu,eps", [
+    (2, 100, 64, torch.bfloat16, True, 1e-5), (3, 50, 320, torch.float32, False, 1e-6),
+    (1, 7, 32, torch.float32, True, 1e-5), (2, 230400, 320, torch.bfloat16, False, 1e-6),
+    (50, 9216, 320, torch.bfloat16, True, 1e-5), (1, 589824, 128, torch.bfloat16, True, 1e-6),
+    (50, 144, 2560, torch.bfloat16, True, 1e-5)])
+def test_group_norm_kernel(gen, n, s, c, dtype, silu, eps):
+    x = _randn(gen, n, s, c, scale=2.0, dtype=dtype) + 0.5
+    w = 1 + _randn(gen, c, scale=0.1, dtype=torch.float32)
+    b = _randn(gen, c, scale=0.1, dtype=torch.float32)
+    n0 = groupnorm.launches
+    got = groupnorm.group_norm_fused(x, w, b, 32, eps, silu)
+    assert groupnorm.launches == n0 + 1
+    ref = groupnorm.group_norm_fused_plain(x, w, b, 32, eps, silu)
+    if dtype == torch.float32:
+        _assert_close(got, ref, max_rel=2.0 ** -14, rms_tol=2.0 ** -16)
+    else:
+        _assert_close(got, ref)
+    again = groupnorm.group_norm_fused(x, w, b, 32, eps, silu)
+    assert torch.equal(got, again)  # no atomics: a rerun gives the same bits
+
+
+@pytest.mark.parametrize("b,sq,h,d,lt,li", [(1, 200, 2, 64, 77, 16), (2, 128, 1, 128, 77, 16),
+                                            (1, 300, 3, 64, 5, 1), (2, 640, 2, 64, 256, 256),
+                                            (50, 9216, 5, 64, 77, 256)])
+def test_dual_cross_attention_kernel(gen, b, sq, h, d, lt, li):
+    q = _randn(gen, b, sq, h, d)
+    kt, vt = _randn(gen, b, lt, h, d), _randn(gen, b, lt, h, d)
+    ki, vi = _randn(gen, b, li, h, d), _randn(gen, b, li, h, d)
+    n0 = cross_attention.launches
+    got = cross_attention.dual_cross_attention(q, kt, vt, ki, vi)
+    assert cross_attention.launches == n0 + 1
+    _assert_close(got, cross_attention.dual_cross_attention_plain(q, kt, vt, ki, vi))
+
+
+@pytest.mark.parametrize("b,t,s,h,d", [(1, 40, 24, 2, 64), (2, 64, 8, 1, 128), (1, 7, 16, 2, 64),
+                                       (1, 33, 5, 1, 64), (2, 40, 2560, 5, 64)])
+def test_temporal_attention_kernel(gen, b, t, s, h, d):
+    q, k, v = (_randn(gen, b, t, s, h, d) for _ in range(3))
+    n0 = temporal_attention.launches
+    got = temporal_attention.temporal_attention_fused(q, k, v)
+    assert temporal_attention.launches == n0 + 1
+    _assert_close(got, temporal_attention.temporal_attention_fused_plain(q, k, v))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 200, 2, 64), (1, 64, 1, 128), (4, 2304, 10, 64),
+                                     (50, 576, 20, 64)])
+def test_spatial_layer_kernel(gen, b, s, h, d):
+    c = h * d
+    args = (_randn(gen, b, s, c, scale=0.5), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
+            _randn(gen, c, scale=0.1, dtype=torch.float32), _randn(gen, 3 * c, c, scale=c ** -0.5),
+            _randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1))
+    n0 = spatial_layer.launches
+    got = spatial_layer.fused_spatial_layer(*args, heads=h, dim_head=d)
+    assert spatial_layer.launches == n0 + 1
+    _assert_close(got, spatial_layer.fused_spatial_layer_plain(*args, heads=h, dim_head=d))
+
+
 def test_wrappers_refuse_float32_on_the_card(gen):
     x = torch.zeros((1, 3, 8, 64), device="cuda")
     with pytest.raises(ValueError):
@@ -95,7 +165,19 @@ def test_wrappers_refuse_float32_on_the_card(gen):
 def test_generate_wiring_matches_cpu(gen):
     """`generate` on a small config whose every gate takes the kernels,
     card against CPU (the same check as chip_smoke.py's wiring phase)."""
-    from chip_smoke import run_wiring
+    from chip_smoke import MAIN_KERNELS, run_wiring
 
     res = run_wiring(gen)
-    assert all(v > 0 for v in res["launches"].values())
+    assert all(res["launches"][k] > 0 for k in MAIN_KERNELS)
+
+
+@pytest.mark.parametrize("frames", [8, 40])
+def test_generate_wiring_with_routes_matches_cpu(gen, frames):
+    """The same with both routes on, and at 40 frames, where the temporal
+    attentions leave the layer kernel for `temporal_attention_fused`."""
+    from chip_smoke import run_wiring
+
+    res = run_wiring(gen, routes=True, frames=frames)
+    assert res["launches"]["group_norm_fused"] > 0
+    assert res["launches"]["dual_cross_attention"] > 0
+    assert (res["launches"]["temporal_attention_fused"] > 0) == (frames > 32)

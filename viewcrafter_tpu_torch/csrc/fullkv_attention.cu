@@ -1,7 +1,9 @@
 // Non-causal, unmasked softmax attention, flash style.
 // Replaces viewcrafter_tpu/ops/pallas/fullkv_attention.py:fullkv_attention.
 //
-// q, k, v, o: (B, S, H, D) bf16, D in {64, 128}. One block of 4 warps per
+// q, k, v, o: (B, S, H, D) bf16, D in {64, 128}; each may be a column block
+// of a wider row-major buffer (the fused spatial layer's (B*S, 3C) Q|K|V),
+// so the kernel takes the row strides. One block of 4 warps per
 // (query tile, head, batch); each warp owns MT x 16 query rows (MT = 2 at
 // D = 64, so every K/V fragment loaded from shared memory feeds two MMAs;
 // MT = 1 at D = 128, for registers). The query tile is scaled by
@@ -30,7 +32,8 @@ struct FaShape {
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              bf16* __restrict__ o, int Sq, int Sk, int H, float qscale) {
+              bf16* __restrict__ o, int Sq, int Sk, long q_rs, long kv_rs, long o_rs,
+              float qscale) {
   constexpr int MT = FaShape<D>::MT, BQ = FaShape<D>::BQ, LD = FaShape<D>::LD;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
@@ -39,10 +42,10 @@ fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
-  const long rs = (long)H * D;  // row stride of (B, S, H, D)
-  const bf16* qb = q + (long)b * Sq * rs + h * D;
-  const bf16* kb = k + (long)b * Sk * rs + h * D;
-  const bf16* vb = v + (long)b * Sk * rs + h * D;
+  // row strides in elements: H * D for packed (B, S, H, D) tensors
+  const bf16* qb = q + (long)b * Sq * q_rs + h * D;
+  const bf16* kb = k + (long)b * Sk * kv_rs + h * D;
+  const bf16* vb = v + (long)b * Sk * kv_rs + h * D;
 
   // query tile: scale, round to bf16, store
   for (int c = tid; c < BQ * (D / 8); c += FA_THREADS) {
@@ -50,7 +53,7 @@ fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     const int gq = qt * BQ + r;
     uint4 u = zero_u4();
     if (gq < Sq) {
-      u = *reinterpret_cast<const uint4*>(qb + (long)gq * rs + cc);
+      u = *reinterpret_cast<const uint4*>(qb + (long)gq * q_rs + cc);
       bf16* e = reinterpret_cast<bf16*>(&u);
 #pragma unroll
       for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(__bfloat162float(e[i]) * qscale);
@@ -65,8 +68,8 @@ fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
       const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
       const int gk = tile * FA_BKV + r;
       if (gk < Sk) {
-        cp_async16(dK + r * LD + cc, kb + (long)gk * rs + cc);
-        cp_async16(dV + r * LD + cc, vb + (long)gk * rs + cc);
+        cp_async16(dK + r * LD + cc, kb + (long)gk * kv_rs + cc);
+        cp_async16(dV + r * LD + cc, vb + (long)gk * kv_rs + cc);
       } else {
         *reinterpret_cast<uint4*>(dK + r * LD + cc) = zero_u4();
         *reinterpret_cast<uint4*>(dV + r * LD + cc) = zero_u4();
@@ -207,7 +210,7 @@ fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     __syncthreads();  // this buffer is refilled two iterations on
   }
 
-  bf16* ob = o + (long)b * Sq * rs + h * D;
+  bf16* ob = o + (long)b * Sq * o_rs + h * D;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const float inv0 = 1.f / l_run[mt][0], inv1 = 1.f / l_run[mt][1];
@@ -216,10 +219,10 @@ fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + (lane % 4) * 2;
       if (row0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long)row0 * rs + col) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long)row0 * o_rs + col) =
             __floats2bfloat162_rn(oacc[mt][j][0] * inv0, oacc[mt][j][1] * inv0);
       if (row0 + 8 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long)(row0 + 8) * rs + col) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long)(row0 + 8) * o_rs + col) =
             __floats2bfloat162_rn(oacc[mt][j][2] * inv1, oacc[mt][j][3] * inv1);
     }
   }
@@ -227,28 +230,42 @@ fullkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 
 template <int D>
 cudaError_t launch_fullkv(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
-                          int Sk, int H, float qscale, cudaStream_t stream) {
+                          int Sk, int H, long q_rs, long kv_rs, long o_rs, float qscale,
+                          cudaStream_t stream) {
   using Shape = FaShape<D>;
   cudaError_t err = cudaFuncSetAttribute(fullkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Shape::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((Sq + Shape::BQ - 1) / Shape::BQ), (unsigned)H, (unsigned)B);
-  fullkv_kernel<D><<<grid, FA_THREADS, Shape::SMEM, stream>>>(q, k, v, o, Sq, Sk, H, qscale);
+  fullkv_kernel<D><<<grid, FA_THREADS, Shape::SMEM, stream>>>(q, k, v, o, Sq, Sk, q_rs, kv_rs,
+                                                              o_rs, qscale);
   return cudaGetLastError();
 }
 
 }  // namespace vc
 
-extern "C" int vc_fullkv_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Sk, int H, int D, float qscale, void* stream) {
+// Row strides in elements (multiples of 8: rows start 16-byte aligned); the
+// batch stride of each tensor is its sequence length times its row stride.
+extern "C" int vc_fullkv_attention_strided(const void* q, const void* k, const void* v, void* o,
+                                           int B, int Sq, int Sk, int H, int D, long q_rs,
+                                           long kv_rs, long o_rs, float qscale, void* stream) {
   using namespace vc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
-  if (D == 64) return (int)launch_fullkv<64>(qb, kb, vb, ob, B, Sq, Sk, H, qscale, s);
-  if (D == 128) return (int)launch_fullkv<128>(qb, kb, vb, ob, B, Sq, Sk, H, qscale, s);
+  if (q_rs % 8 || kv_rs % 8 || o_rs % 8) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return (int)launch_fullkv<64>(qb, kb, vb, ob, B, Sq, Sk, H, q_rs, kv_rs, o_rs, qscale, s);
+  if (D == 128)
+    return (int)launch_fullkv<128>(qb, kb, vb, ob, B, Sq, Sk, H, q_rs, kv_rs, o_rs, qscale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int vc_fullkv_attention(const void* q, const void* k, const void* v, void* o, int B,
+                                   int Sq, int Sk, int H, int D, float qscale, void* stream) {
+  const long rs = (long)H * D;
+  return vc_fullkv_attention_strided(q, k, v, o, B, Sq, Sk, H, D, rs, rs, rs, qscale, stream);
 }

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from viewcrafter_tpu_torch.ops.kernels import ff_layer as _ff
+from viewcrafter_tpu_torch.ops.kernels import groupnorm as _gn
 
 
 def group_norm_silu(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
@@ -45,18 +46,38 @@ def group_norm_silu(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
 
 class GroupNorm32(nn.Module):
     """GroupNorm in float32 with an optional fused SiLU; output in the
-    input's dtype."""
+    input's dtype.
+
+    `fused` (off by default, as the JAX package's `VIEWCRAFTER_GN_FUSED`; set
+    through `set_group_norm_fused`) routes every input the kernel's gate takes
+    through `ops/kernels/groupnorm.py:group_norm_fused`: the CUDA kernels on
+    a CUDA tensor, their plain twin on a CPU tensor."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  with_silu: bool = False):
         super().__init__()
         self.num_groups, self.eps, self.with_silu = num_groups, eps, with_silu
+        self.fused = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        if self.fused:
+            x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+            if _gn.supports_group_norm(x3.shape, self.num_groups, x.element_size()):
+                y = _gn.group_norm_fused(x3.contiguous(), self.weight, self.bias,
+                                         self.num_groups, self.eps, self.with_silu)
+                return y.reshape(x.shape)
         return group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps,
                                self.with_silu)
+
+
+def set_group_norm_fused(module: nn.Module, on: bool) -> nn.Module:
+    """Switch the fused-GroupNorm route of every GroupNorm32 under `module`."""
+    for mod in module.modules():
+        if isinstance(mod, GroupNorm32):
+            mod.fused = bool(on)
+    return module
 
 
 def layer_norm_f32(x, weight, bias, eps: float = 1e-5):

@@ -6,6 +6,8 @@ The port of the JAX package's models/lvdm.py `VideoDiffusionEngine`:
      CLIP-text-encode the prompts, giving the K CFG branch contexts;
   3. DDIM with v-prediction and batched (or sequential) CFG over UNet3D;
   4. VAE-decode the sampled latents one frame at a time.
+`generate_staged` is the same pipeline with the sampling cut into windows
+and, with `attn_reuse_interval` > 1, PAB-style attention reuse.
 
 The engine runs on the card unless the caller asks for the CPU: with
 `device=None` and no CUDA device it raises. Randomness comes from an explicit
@@ -27,10 +29,15 @@ from viewcrafter_tpu_torch.models.resampler import Resampler
 from viewcrafter_tpu_torch.models.unet3d import UNet3D
 from viewcrafter_tpu_torch.models.vae import AutoencoderKL
 from viewcrafter_tpu_torch.ops.schedule import DDIMSchedule, DiffusionSchedule
-from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig, ddim_sample
+from viewcrafter_tpu_torch.sampling.ddim import (
+    GuidanceConfig,
+    ddim_sample_window,
+    ddim_sample_window_pab,
+)
 from viewcrafter_tpu_torch.utils.tokenizer import tokenize
 
 SUBMODELS = ("unet", "vae", "clip_text", "clip_vision", "resampler")
+CACHE_DTYPES = {"bf16": None, "f8": torch.float8_e4m3fn}  # None: the module dtype
 
 
 @dataclasses.dataclass
@@ -56,16 +63,26 @@ def resolve_device(device=None) -> torch.device:
 
 
 class VideoDiffusionEngine:
-    """Owns the five submodels and the schedules."""
+    """Owns the five submodels and the schedules.
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16, device=None):
+    Two opt-in kernel routes, both off by default as in the JAX package
+    (which reads environment variables for them; the port reads none):
+    cross_attn_impl="auto" runs every image cross-attention of the UNet whose
+    shape passes the gate as one `dual_cross_attention` call, and
+    gn_fused=True runs every GroupNorm of the UNet and the VAE through
+    `group_norm_fused`."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16, device=None,
+                 cross_attn_impl: str = "xla", gn_fused: bool = False):
         self.cfg, self.dtype = cfg, dtype
         self.device = resolve_device(device)
         with torch.device(self.device):
-            self.unet = UNet3D(cfg.unet, dtype=dtype)
+            self.unet = UNet3D(cfg.unet, dtype=dtype, cross_attn_impl=cross_attn_impl,
+                               gn_fused=gn_fused)
             self.vae = AutoencoderKL(
                 ch=cfg.vae.ch, ch_mult=cfg.vae.ch_mult, num_res_blocks=cfg.vae.num_res_blocks,
-                embed_dim=cfg.vae.embed_dim, z_channels=cfg.vae.z_channels, dtype=dtype)
+                embed_dim=cfg.vae.embed_dim, z_channels=cfg.vae.z_channels, dtype=dtype,
+                gn_fused=gn_fused)
             self.clip_text = CLIPTextEncoder(cfg.clip_text, dtype=dtype)
             self.clip_vision = CLIPVisionEncoder(cfg.clip_vision, dtype=dtype)
             self.resampler = Resampler(cfg.resampler, dtype=dtype)
@@ -164,12 +181,26 @@ class VideoDiffusionEngine:
         uncond_img = torch.cat([uncond_text_ctx, img_ctx], dim=1)
         return torch.stack([uncond, uncond_img, cond])
 
-    def _denoise_fn(self, z_cond, contexts, fs_val: float, guidance: GuidanceConfig):
-        """denoise(x_k, t) -> v over the K stacked branches: one batched UNet
-        call with the shared-prefix dedup, or (sequential) one call per
-        branch."""
+    def _denoise_fn(self, z_cond, contexts, fs_val: float, guidance: GuidanceConfig,
+                    cache_kinds=("spatial", "cross", "temporal"), cache_sites: tuple = (),
+                    cache_dtype: str = "bf16"):
+        """Returns (denoise, denoise_full, denoise_reuse) over the K stacked
+        CFG branches:
+          denoise(x_k, t) -> v                          (baseline)
+          denoise_full(x_k, t) -> (v, attention cache)   (PAB collect)
+          denoise_reuse(x_k, t, cache) -> v              (PAB broadcast)
+        The baseline is one batched UNet call with the shared-prefix dedup,
+        or (sequential) one call per branch; the two cache programs run
+        batched without the dedup, as in the JAX package.
+
+        cache_kinds: the site families cached. cache_sites: site-name
+        prefixes (e.g. ("down_0", "up_0", "init_attn")): only matching sites
+        stay in the cache, the rest are recomputed every step (a read miss
+        falls through to the computation). cache_dtype: "bf16" stores the
+        module dtype, "f8" torch.float8_e4m3fn."""
         k = guidance.num_branches
         b = z_cond.shape[0]
+        store_dtype = CACHE_DTYPES[cache_dtype]
         fs_batch = torch.full((k * b,), fs_val, dtype=torch.float32, device=z_cond.device)
         if guidance.sequential and k > 1:
             def denoise(x_k, t_batch):
@@ -179,7 +210,10 @@ class VideoDiffusionEngine:
                 outs = [self.unet(torch.cat([xs[j], z_cond], dim=-1), ts[j], contexts[j],
                                   fs=fss[j]) for j in range(k)]
                 return torch.cat(outs, dim=0)
-            return denoise
+
+            # no cache programs for sequential CFG: `generate_staged` refuses
+            # the combination before it would call them
+            return denoise, None, None
 
         ctx_flat = contexts.reshape((k * b,) + contexts.shape[2:])
         z_cond_k = z_cond.repeat((k,) + (1,) * (z_cond.ndim - 1))
@@ -189,7 +223,20 @@ class VideoDiffusionEngine:
             # branches, so the UNet computes the context-free prefix once
             return self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
                              fs=fs_batch, shared_prefix=k)
-        return denoise
+
+        def denoise_full(x_k, t_batch):
+            v, cache = self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
+                                 fs=fs_batch, collect_cache=True, cache_kinds=cache_kinds,
+                                 cache_dtype=store_dtype)
+            if cache_sites:
+                cache = {n: a for n, a in cache.items() if n.startswith(tuple(cache_sites))}
+            return v, cache
+
+        def denoise_reuse(x_k, t_batch, cache):
+            return self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
+                             fs=fs_batch, attn_cache=cache, cache_kinds=cache_kinds)
+
+        return denoise, denoise_full, denoise_reuse
 
     def draw_noise(self, frames_shape, steps: int, generator: torch.Generator) -> GenerateNoise:
         """Standard-normal draws for one `generate` call on frames of
@@ -208,6 +255,22 @@ class VideoDiffusionEngine:
     # generation
     # ------------------------------------------------------------------
 
+    def _prepare(self, guidance_frames, token_ids, uncond_token_ids, dd: DDIMSchedule,
+                 guidance: GuidanceConfig, cond_idx: int, noise: Optional[GenerateNoise],
+                 generator: Optional[torch.Generator]):
+        """The stage before sampling: the noise (drawn if not given), the
+        guidance latents and the K branch contexts, all on the engine's
+        device."""
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            noise = self.draw_noise(guidance_frames.shape, dd.num_steps, generator)
+        frames = guidance_frames.to(self.device)
+        z_cond = self.encode_frames(frames, noise.posterior.to(self.device))
+        contexts = self.build_contexts(frames, cond_idx, token_ids.to(self.device),
+                                       uncond_token_ids.to(self.device), guidance)
+        return noise, z_cond, contexts
+
     @torch.no_grad()
     def generate(self, guidance_frames, token_ids, uncond_token_ids, steps: int = 50,
                  eta: float = 1.0, guidance: GuidanceConfig = GuidanceConfig(),
@@ -221,24 +284,68 @@ class VideoDiffusionEngine:
         neither is given). on_stage(name), if given, is called after
         "prepare", after each "step" and after "decode" (timing hooks).
         Returns the video (B, T, H, W, 3) in [-1, 1], float32."""
-        cfg = self.cfg
+        return self.generate_staged(
+            guidance_frames, token_ids, uncond_token_ids, steps=steps, eta=eta, guidance=guidance,
+            fs=fs, timestep_spacing=timestep_spacing, cond_idx=cond_idx, chunk=max(steps, 1),
+            noise=noise, generator=generator, on_stage=on_stage)
+
+    @torch.no_grad()
+    def generate_staged(self, guidance_frames, token_ids, uncond_token_ids, steps: int = 50,
+                        eta: float = 1.0, guidance: GuidanceConfig = GuidanceConfig(),
+                        fs: Optional[int] = None, timestep_spacing: str = "uniform_trailing",
+                        cond_idx: int = 0, chunk: int = 10, attn_reuse_interval: int = 1,
+                        attn_reuse_kinds: tuple = ("spatial", "cross", "temporal"),
+                        attn_reuse_sites: tuple = (), attn_reuse_dtype: str = "bf16",
+                        mesh=None, noise: Optional[GenerateNoise] = None,
+                        generator: Optional[torch.Generator] = None,
+                        on_stage: Optional[Callable[[str], None]] = None):
+        """`generate` as prepare / sampling windows of `chunk` steps / decode;
+        the windows change nothing: step indices and noise are the chain's.
+
+        attn_reuse_interval > 1 enables Pyramid-Attention-Broadcast-style
+        reuse (arXiv:2408.12588): every cell of that many steps computes
+        attention once and broadcasts the outputs (the `attn_reuse_kinds`
+        families at the `attn_reuse_sites` prefixes, stored as
+        `attn_reuse_dtype`) to the cell's other steps; interval 1 is exact
+        sampling. on_stage(name) is called after "prepare", after each
+        sampling step ("step", or "full" / "reuse" under attention reuse) and
+        after "decode". The sharded paths (`mesh`) are not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded generation (mesh, CFG-branch and tensor parallelism) is not ported "
+                "yet (see ROADMAP.md)")
+        if attn_reuse_interval > 1 and guidance.sequential and guidance.num_branches > 1:
+            raise NotImplementedError(
+                "attention reuse with sequential CFG is not ported yet (see ROADMAP.md)")
+        if attn_reuse_interval > 1:
+            # the JAX package caps a window near 24 steps for its serving
+            # watchdog; on the card the cap bounds nothing, but the same
+            # arithmetic keeps the cells where the JAX package puts them
+            chunk = attn_reuse_interval * max(1, 24 // attn_reuse_interval)
         dd = DDIMSchedule.create(self.schedule, steps, eta=eta, timestep_spacing=timestep_spacing)
-        if noise is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            noise = self.draw_noise(guidance_frames.shape, dd.num_steps, generator)
-        frames = guidance_frames.to(self.device)
-        z_cond = self.encode_frames(frames, noise.posterior.to(self.device))
-        contexts = self.build_contexts(frames, cond_idx, token_ids.to(self.device),
-                                       uncond_token_ids.to(self.device), guidance)
-        fs_val = float(fs if fs is not None else cfg.unet.default_fs)
-        denoise = self._denoise_fn(z_cond, contexts, fs_val, guidance)
+        noise, z_cond, contexts = self._prepare(guidance_frames, token_ids, uncond_token_ids, dd,
+                                                guidance, cond_idx, noise, generator)
+        fs_val = float(fs if fs is not None else self.cfg.unet.default_fs)
+        denoise, denoise_full, denoise_reuse = self._denoise_fn(
+            z_cond, contexts, fs_val, guidance, cache_kinds=attn_reuse_kinds,
+            cache_sites=attn_reuse_sites, cache_dtype=attn_reuse_dtype)
         if on_stage is not None:
             on_stage("prepare")
         step_noise = noise.steps.to(self.device)
-        z0 = ddim_sample(denoise, noise.x_T.to(self.device), dd, lambda i: step_noise[i],
-                         guidance, on_step=(lambda i: on_stage("step")) if on_stage else None)
-        video = self.decode_latents(z0).float().clamp(-1.0, 1.0)
+        on_step = (lambda i, kind: on_stage(kind)) if on_stage else None
+        x = noise.x_T.to(self.device)
+        s0 = 0
+        while s0 < dd.num_steps:
+            num = min(chunk, dd.num_steps - s0)
+            if attn_reuse_interval > 1:
+                x = ddim_sample_window_pab(denoise_full, denoise_reuse, x, dd,
+                                           lambda i: step_noise[i], s0, num,
+                                           attn_reuse_interval, guidance, on_step=on_step)
+            else:
+                x = ddim_sample_window(denoise, x, dd, lambda i: step_noise[i], s0, num,
+                                       guidance, on_step=on_step)
+            s0 += num
+        video = self.decode_latents(x).float().clamp(-1.0, 1.0)
         if on_stage is not None:
             on_stage("decode")
         return video

@@ -7,11 +7,23 @@ Channels-last tensors; frames ride the batch axis for spatial ops
 sites that run a Pallas kernel on the TPU run the hand-written kernels:
 spatial self-attention (`fullkv_attention`), both temporal attentions
 (`fused_temporal_layer`), every GEGLU FF (`fused_ff_layer`) and every
-temporal conv (`temporal_conv3`). Cross-attention and the sites that fail a
+temporal conv (`temporal_conv3`). Where the layer kernel's gate fails but
+`temporal_attention_fused`'s holds (clips of 33 to 64 frames), the temporal
+attentions run that kernel between plain projections. The sites that fail a
 kernel's gate take plain torch ops, as the JAX package takes XLA there.
 
-Not ported yet (they raise): PAB attention caching, the relative-position
-temporal bias and causal temporal attention.
+Two opt-in routes, off by default as in the JAX package (which selects them
+by environment variable; here they are constructor arguments):
+`cross_attn_impl` other than "xla" sends every image cross-attention whose
+shape passes the gate through `dual_cross_attention`, and `gn_fused=True`
+every GroupNorm through `group_norm_fused`.
+
+PAB-style attention reuse: `AttnCacheCtx` and the `attn_cache` /
+`collect_cache` arguments of `UNet3D.forward`, with the JAX package's site
+names.
+
+Not ported yet (they raise): the relative-position temporal bias and causal
+temporal attention.
 """
 
 from __future__ import annotations
@@ -28,9 +40,12 @@ from viewcrafter_tpu_torch.models.layers import (
     GroupNorm32,
     LayerNormF32,
     layer_norm_f32,
+    set_group_norm_fused,
     silu,
 )
 from viewcrafter_tpu_torch.ops.attention import attention
+from viewcrafter_tpu_torch.ops.kernels import cross_attention as _dual
+from viewcrafter_tpu_torch.ops.kernels import temporal_attention as _tattn
 from viewcrafter_tpu_torch.ops.kernels import temporal_conv as _tconv
 from viewcrafter_tpu_torch.ops.kernels import temporal_layer as _tlayer
 from viewcrafter_tpu_torch.ops.schedule import timestep_embedding
@@ -39,7 +54,10 @@ from viewcrafter_tpu_torch.ops.schedule import timestep_embedding
 class CrossAttention(nn.Module):
     """Multi-head attention with optional dual-stream image cross-attention
     (separate k/v for the tokens past `text_context_len`, out = out_text +
-    out_img). Self-attention when context is None."""
+    out_img). Self-attention when context is None. With `attn_impl` other
+    than "xla", no mask and a shape that passes `supports_dual`, the two
+    image-conditioned streams run as one `dual_cross_attention` call (the
+    CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor)."""
 
     def __init__(self, heads: int, dim_head: int, query_dim: int,
                  context_dim: Optional[int] = None, image_cross_attention: bool = False,
@@ -70,44 +88,87 @@ class CrossAttention(nn.Module):
             ctx = ctx[:, :self.text_context_len]
         k = self.to_k(ctx).view(b, -1, h, d)
         v = self.to_v(ctx).view(b, -1, h, d)
-        out = attention(q, k, v, mask=mask, impl=self.attn_impl).reshape(b, n, h * d)
         if ctx_img is not None:
             k_ip = self.to_k_ip(ctx_img).view(b, -1, h, d)
             v_ip = self.to_v_ip(ctx_img).view(b, -1, h, d)
+            if (mask is None and self.attn_impl != "xla"
+                    and _dual.supports_dual(q.shape, k.shape[1], k_ip.shape[1])):
+                out = _dual.dual_cross_attention(q, k, v, k_ip, v_ip)
+                return self.to_out(out.reshape(b, n, h * d))
+        out = attention(q, k, v, mask=mask, impl=self.attn_impl).reshape(b, n, h * d)
+        if ctx_img is not None:
             out = out + attention(q, k_ip, v_ip, impl=self.attn_impl).reshape(b, n, h * d)
         return self.to_out(out)
 
 
+class AttnCacheCtx:
+    """Attention-output caching (Pyramid-Attention-Broadcast-style reuse):
+    attention deltas drift slowly across adjacent DDIM steps, so a step may
+    reuse the previous step's attention outputs instead of recomputing them.
+
+    `reads`: site name -> cached tensor consumed instead of computing that
+    site; `writes` collects this pass's outputs when `collect`. The flags
+    pick the site families (spatial self-attention, cross-attention, temporal
+    self-attention, feed-forward). `store_dtype`: what `writes` holds (e.g.
+    torch.float8_e4m3fn halves the cache); `compute_dtype`: what reads are
+    cast back to."""
+
+    def __init__(self, reads=None, collect=False, spatial=True, cross=True, temporal=True,
+                 ff=False, store_dtype=None, compute_dtype=None):
+        self.reads = reads or {}
+        self.writes = {} if collect else None
+        self.spatial, self.cross, self.temporal, self.ff = spatial, cross, temporal, ff
+        self.store_dtype, self.compute_dtype = store_dtype, compute_dtype
+
+    def site(self, kind: str, name: str, compute):
+        enabled = getattr(self, kind)
+        if enabled and name in self.reads:
+            out = self.reads[name]
+            if self.compute_dtype is not None:
+                out = out.to(self.compute_dtype)
+        else:
+            out = compute()
+        if self.writes is not None and enabled:
+            self.writes[name] = out if self.store_dtype is None else out.to(self.store_dtype)
+        return out
+
+
+_NO_CACHE = AttnCacheCtx()
+
+
 class TransformerBlock(nn.Module):
-    """norm->self-attn, norm->cross-attn (plain ops, as the JAX package's
-    `attn_impl="xla"` there), norm->GEGLU-FF, each residual."""
+    """norm->self-attn, norm->cross-attn (`cross_attn_impl`: "xla", the
+    default as in the JAX package, is plain ops), norm->GEGLU-FF, each
+    residual and each a cache site."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
-                 image_cross_attention: bool):
+                 image_cross_attention: bool, cross_attn_impl: str = "xla"):
         super().__init__()
         self.norm1 = LayerNormF32(dim)
         self.attn1 = CrossAttention(heads, dim_head, dim)
         self.norm2 = LayerNormF32(dim)
         self.attn2 = CrossAttention(heads, dim_head, dim, context_dim=context_dim,
                                     image_cross_attention=image_cross_attention,
-                                    attn_impl="xla")
+                                    attn_impl=cross_attn_impl)
         self.norm3 = LayerNormF32(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, tile_k: int = 1):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, cache: AttnCacheCtx = _NO_CACHE, site: str = "",
+                tile_k: int = 1):
+        x = x + cache.site("spatial", site + "/attn1", lambda: self.attn1(self.norm1(x)))
         if tile_k > 1:
             # CFG-prefix dedup tile point (see UNet3D shared_prefix)
             x = x.repeat(tile_k, 1, 1)
-        x = x + self.attn2(self.norm2(x), context=context)
-        return x + self.ff(x, ln=self.norm3)
+        x = x + cache.site("cross", site + "/attn2",
+                           lambda: self.attn2(self.norm2(x), context=context))
+        return x + cache.site("ff", site + "/ff", lambda: self.ff(x, ln=self.norm3))
 
 
 class SpatialTransformer(nn.Module):
     """Per-frame transformer over (h*w) tokens with linear projections."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
-                 context_dim: int, image_cross_attention: bool):
+                 context_dim: int, image_cross_attention: bool, cross_attn_impl: str = "xla"):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
@@ -115,16 +176,18 @@ class SpatialTransformer(nn.Module):
         self.proj_in = nn.Linear(channels, inner)
         for i in range(depth):
             self.add_module(f"block_{i}", TransformerBlock(
-                inner, heads, dim_head, context_dim, image_cross_attention))
+                inner, heads, dim_head, context_dim, image_cross_attention, cross_attn_impl))
         self.proj_out = nn.Linear(inner, channels)
 
-    def forward(self, x, context, tile_k: int = 1):
+    def forward(self, x, context, cache: AttnCacheCtx = _NO_CACHE, site: str = "",
+                tile_k: int = 1):
         # x: (BT, H, W, C); context: (BT, L, context_dim). tile_k > 1: x holds
         # ONE of tile_k identical CFG branches, replicated inside block_0
         bt, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(bt, hh * ww, c))
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, context, tile_k=tile_k if i == 0 else 1)
+            h = getattr(self, f"block_{i}")(h, context, cache=cache, site=f"{site}/block_{i}",
+                                            tile_k=tile_k if i == 0 else 1)
         h = self.proj_out(h)
         if tile_k > 1:
             x = x.repeat(tile_k, 1, 1, 1)
@@ -133,7 +196,17 @@ class SpatialTransformer(nn.Module):
 
 
 def _temporal_attention(q, k, v):
-    """Self-attention over the t axis of (B, T, S, H, D) tensors."""
+    """Self-attention over the t axis of (B, T, S, H, D) tensors: the
+    `temporal_attention_fused` kernel on a CUDA tensor whose shape passes
+    the gate that sends the JAX package to its Pallas kernel on a TPU (no
+    mask, T <= 64, head dim 64 or 128), else plain ops. As in the JAX
+    package, the gate is asked at any T: a site of up to 32 frames gets here
+    only where the layer kernel's gate failed, which at the full-width
+    presets (25 frames, or 16) happens at no temporal site
+    (tests/test_torch_routes.py enumerates them), so their default path
+    launches this kernel nowhere."""
+    if q.is_cuda and _tattn.supports_fused(q.shape):
+        return _tattn.temporal_attention_fused(q, k, v)
     d = q.shape[-1]
     logits = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float()) * (d ** -0.5)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -189,10 +262,10 @@ class TemporalTransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x):
-        x = x + self.attn1(x, ln=self.norm1)
-        x = x + self.attn2(x, ln=self.norm2)
-        return x + self.ff(x, ln=self.norm3)
+    def forward(self, x, cache: AttnCacheCtx = _NO_CACHE, site: str = ""):
+        x = x + cache.site("temporal", site + "/attn1", lambda: self.attn1(x, ln=self.norm1))
+        x = x + cache.site("temporal", site + "/attn2", lambda: self.attn2(x, ln=self.norm2))
+        return x + cache.site("ff", site + "/ff", lambda: self.ff(x, ln=self.norm3))
 
 
 class TemporalTransformer(nn.Module):
@@ -208,12 +281,12 @@ class TemporalTransformer(nn.Module):
             self.add_module(f"block_{i}", TemporalTransformerBlock(inner, heads, dim_head))
         self.proj_out = nn.Linear(inner, channels)
 
-    def forward(self, x):
+    def forward(self, x, cache: AttnCacheCtx = _NO_CACHE, site: str = ""):
         # x: (B, T, H, W, C); GroupNorm statistics span all frames
         b, t, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(b, t, hh * ww, c))
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h)
+            h = getattr(self, f"block_{i}")(h, cache=cache, site=f"{site}/block_{i}")
         h = self.proj_out(h)
         return x + h.reshape(b, t, hh, ww, c)
 
@@ -308,10 +381,16 @@ class Upsample(nn.Module):
 class UNet3D(nn.Module):
     """Full denoiser. x: (B, T, H, W, in_channels), the noisy latent
     channel-concatenated with the guidance latent. Returns the v-prediction
-    (B, T, H, W, out_channels) in float32."""
+    (B, T, H, W, out_channels) in float32.
 
-    def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.bfloat16):
+    cross_attn_impl, gn_fused: the two opt-in kernel routes (module
+    docstring); the defaults are the JAX package's."""
+
+    def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.bfloat16,
+                 cross_attn_impl: str = "xla", gn_fused: bool = False):
         super().__init__()
+        if cross_attn_impl not in ("xla", "auto"):
+            raise ValueError(f"unknown cross_attn_impl {cross_attn_impl!r}")
         if cfg.use_causal_attention or cfg.use_relative_position:
             raise NotImplementedError(
                 "causal temporal attention and the relative-position bias are not ported yet")
@@ -331,7 +410,8 @@ class UNet3D(nn.Module):
 
         def spatial(ch):
             return SpatialTransformer(ch, ch // nhc, nhc, cfg.transformer_depth,
-                                      cfg.context_dim, cfg.image_cross_attention)
+                                      cfg.context_dim, cfg.image_cross_attention,
+                                      cross_attn_impl)
 
         def res(cin, cout):
             return ResBlock(cin, cout, ted, cfg.temporal_conv)
@@ -371,13 +451,31 @@ class UNet3D(nn.Module):
                     ds //= 2
         self.out_norm = GroupNorm32(mc, with_silu=True)
         self.out_conv = Conv(mc, cfg.out_channels, 3, padding=1)
+        set_group_norm_fused(self, gn_fused)
 
-    def forward(self, x, timesteps, context, fs=None, shared_prefix: int = 1):
-        """shared_prefix=K asserts that the K leading-axis guidance branches of
+    def forward(self, x, timesteps, context, fs=None, attn_cache=None,
+                collect_cache: bool = False,
+                cache_kinds=("spatial", "cross", "temporal"), cache_dtype=None,
+                shared_prefix: int = 1):
+        """attn_cache / collect_cache: PAB-style attention-output reuse (see
+        AttnCacheCtx). attn_cache is a dict of site name -> tensor consumed
+        instead of computing those sites; collect_cache=True returns
+        (y, {site: output}) for the caller to feed to the next step;
+        cache_kinds picks the site families and cache_dtype the storage type.
+        Both off: the baseline pass.
+
+        shared_prefix=K asserts that the K leading-axis guidance branches of
         x / timesteps / fs are identical (the batched-CFG layout; only
         `context` differs per branch). The context-free prefix of the net,
         up to the first cross-attention, then runs once at batch B/K and is
-        replicated there: the same output for less work."""
+        replicated there: the same output for less work. Off whenever a
+        cache is read or collected, as in the JAX package."""
+        cache = _NO_CACHE
+        if attn_cache is not None or collect_cache:
+            cache = AttnCacheCtx(
+                reads=attn_cache, collect=collect_cache, spatial="spatial" in cache_kinds,
+                cross="cross" in cache_kinds, temporal="temporal" in cache_kinds,
+                ff="ff" in cache_kinds, store_dtype=cache_dtype, compute_dtype=self.dtype)
         cfg, dtype = self.cfg, self.dtype
         b, t, hh, ww, _ = x.shape
         mc = cfg.model_channels
@@ -406,7 +504,9 @@ class UNet3D(nn.Module):
 
         # CFG-prefix dedup: run the context-independent prefix once for the K
         # identical guidance branches, replicate at the first cross-attention
-        k_sh = shared_prefix if shared_prefix > 1 and b % shared_prefix == 0 else 1
+        k_sh = shared_prefix
+        if k_sh > 1 and (b % k_sh or cache is not _NO_CACHE):
+            k_sh = 1
         state = {"b": b // k_sh, "tiled": k_sh == 1}
         if k_sh > 1:
             h = h[: state["b"] * t]
@@ -419,14 +519,15 @@ class UNet3D(nn.Module):
 
         def run_spatial(name, h):
             tk = 1 if state["tiled"] else k_sh
-            out = getattr(self, name)(h, ctx, tile_k=tk)
+            out = getattr(self, name)(h, ctx, cache=cache, site=name, tile_k=tk)
             if tk > 1:
                 state["b"], state["tiled"] = b, True
             return out
 
         def run_temporal(name, h):
             bt, sh, sw, c = h.shape
-            return getattr(self, name)(h.reshape(state["b"], t, sh, sw, c)).reshape(bt, sh, sw, c)
+            hv = h.reshape(state["b"], t, sh, sw, c)
+            return getattr(self, name)(hv, cache=cache, site=name).reshape(bt, sh, sw, c)
 
         def pop_skip(h):
             skip = hs.pop()
@@ -476,5 +577,8 @@ class UNet3D(nn.Module):
         h = self.out_conv(self.out_norm(h))
         if not state["tiled"]:  # degenerate config with no spatial transformer
             h = h.repeat(k_sh, 1, 1, 1)
-        return h.reshape(b, t, hh, ww, cfg.out_channels).float()
+        y = h.reshape(b, t, hh, ww, cfg.out_channels).float()
+        if collect_cache:
+            return y, cache.writes
+        return y
 

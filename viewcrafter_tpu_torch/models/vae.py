@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from viewcrafter_tpu_torch.models.layers import Conv, GroupNorm32
+from viewcrafter_tpu_torch.models.layers import Conv, GroupNorm32, set_group_norm_fused
 from viewcrafter_tpu_torch.ops.attention import attention
 
 
@@ -137,17 +137,19 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Encoder/Decoder + 1x1 quant convs."""
+    """Encoder/Decoder + 1x1 quant convs. gn_fused: every GroupNorm takes the
+    `group_norm_fused` kernel route (see `layers.GroupNorm32`)."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, embed_dim: int = 4, z_channels: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, gn_fused: bool = False):
         super().__init__()
         self.dtype = dtype
         self.encoder = Encoder(ch, ch_mult, num_res_blocks, z_channels)
         self.decoder = Decoder(ch, ch_mult, num_res_blocks, z_channels)
         self.quant_conv = Conv(2 * z_channels, 2 * embed_dim, 1)
         self.post_quant_conv = Conv(embed_dim, z_channels, 1)
+        set_group_norm_fused(self, gn_fused)
 
     def encode_moments(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (mean, logvar) in f32, logvar clamped to [-30, 20]."""

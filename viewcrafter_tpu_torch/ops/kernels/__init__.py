@@ -7,8 +7,12 @@ the JAX package's gate for that kernel.
 """
 
 from viewcrafter_tpu_torch.ops.kernels import (  # noqa: F401
+    cross_attention,
     ff_layer,
     fullkv_attention,
+    groupnorm,
+    spatial_layer,
+    temporal_attention,
     temporal_conv,
     temporal_layer,
 )
@@ -18,6 +22,10 @@ KERNEL_MODULES = {
     "fused_ff_layer": ff_layer,
     "fullkv_attention": fullkv_attention,
     "fused_temporal_layer": temporal_layer,
+    "group_norm_fused": groupnorm,
+    "dual_cross_attention": cross_attention,
+    "temporal_attention_fused": temporal_attention,
+    "fused_spatial_layer": spatial_layer,
 }
 
 

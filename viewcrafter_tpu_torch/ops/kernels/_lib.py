@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("runtime.cu", "temporal_conv.cu", "ff_layer.cu", "fullkv_attention.cu",
-           "temporal_layer.cu")
+           "temporal_layer.cu", "groupnorm.cu", "cross_attention.cu", "temporal_attention.cu",
+           "spatial_layer.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +40,11 @@ _SIGNATURES = {
     "vc_fullkv_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "vc_temporal_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "vc_group_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "vc_dual_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "vc_temporal_attention": (_P, _P, _P, _P, _I, _I, _L, _I, _F, _P),
+    "vc_spatial_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 _lib = None

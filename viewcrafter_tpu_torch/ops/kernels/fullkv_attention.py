@@ -40,12 +40,14 @@ def _q_scale(d: int) -> float:
     return d ** -0.5 * math.log2(math.e)
 
 
-def fullkv_attention_plain(q, k, v):
+def fullkv_attention_plain(q, k, v, q_scale=None):
     """The kernel's arithmetic in plain torch, batch-chunked so that the f32
-    logits of one chunk stay under PLAIN_LOGIT_BYTES. q/k/v (B, S, H, D)."""
+    logits of one chunk stay under PLAIN_LOGIT_BYTES. q/k/v (B, S, H, D).
+    q_scale: the factor folded into q, d^-1/2 * log2(e) unless given (the
+    fused spatial layer rounds it to the activation type first)."""
     b, s, h, d = q.shape
     sk = k.shape[1]
-    qs = (q.float() * _q_scale(d)).to(q.dtype)
+    qs = (q.float() * (_q_scale(d) if q_scale is None else q_scale)).to(q.dtype)
     chunk = max(1, PLAIN_LOGIT_BYTES // (h * s * sk * 4))
     outs = []
     for i in range(0, b, chunk):

@@ -1,6 +1,8 @@
 """DDIM sampler for v-parameterized video latents: the port of the JAX
 package's sampling/ddim.py (`GuidanceConfig`, `make_ddim_step`,
-`ddim_sample`).
+`ddim_sample`, `ddim_sample_window`, and `ddim_sample_window_pab`, which
+also covers the JAX package's `ddim_sample_window_pab_cells`). The loops are
+plain Python: nothing here is traced or compiled.
 
 The K CFG branches ([uncond, cond], or [uncond, uncond_img, cond]) ride the
 leading axis of one denoiser call. The per-step noise is an argument: the
@@ -12,7 +14,7 @@ The per-step scalars are computed in float32 as the JAX package does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,10 +46,17 @@ class GuidanceConfig:
         return 3 if self.cfg_img is not None else 2
 
 
-def make_ddim_step(denoise_fn: Callable, batch_size: int, schedule: DDIMSchedule,
-                   guidance: GuidanceConfig = GuidanceConfig()):
-    """Build step(i, x, noise) -> x for sampling-step index i (descending-t
-    order); `noise` is a standard-normal tensor shaped like x."""
+class StepParts(NamedTuple):
+    """The pieces of one DDIM step, shared by the samplers below."""
+
+    tile_k: Callable  # x (B, ...) -> the K CFG branches stacked, (K*B, ...)
+    t_batch_at: Callable  # (i, device) -> step i's timestep as a (K*B,) tensor
+    combine_cfg: Callable  # v of the K branches -> guided v, float32
+    update: Callable  # (i, x, v, noise) -> x after step i
+
+
+def ddim_step_parts(batch_size: int, schedule: DDIMSchedule,
+                    guidance: GuidanceConfig = GuidanceConfig()) -> StepParts:
     b = batch_size
     k = guidance.num_branches
     f32 = np.float32
@@ -88,9 +97,18 @@ def make_ddim_step(denoise_fn: Callable, batch_size: int, schedule: DDIMSchedule
         return torch.full((k * b,), float(schedule.timesteps[i]), dtype=torch.float32,
                           device=device)
 
+    return StepParts(tile_k, t_batch_at, combine_cfg, update)
+
+
+def make_ddim_step(denoise_fn: Callable, batch_size: int, schedule: DDIMSchedule,
+                   guidance: GuidanceConfig = GuidanceConfig()):
+    """Build step(i, x, noise) -> x for sampling-step index i (descending-t
+    order); `noise` is a standard-normal tensor shaped like x."""
+    parts = ddim_step_parts(batch_size, schedule, guidance)
+
     def step(i, x, noise):
-        v_all = denoise_fn(tile_k(x), t_batch_at(i, x.device))
-        return update(i, x, combine_cfg(v_all), noise)
+        v_all = denoise_fn(parts.tile_k(x), parts.t_batch_at(i, x.device))
+        return parts.update(i, x, parts.combine_cfg(v_all), noise)
 
     return step
 
@@ -103,10 +121,51 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor, schedule: DDIMSchedule,
     guidance branches on the leading axis and t is (K*B,). step_noise(i)
     gives step i's standard-normal noise. on_step(i), if given, is called
     after each step (timing hooks). Returns pred x_0 latents (B, T, H, W, C)."""
-    step = make_ddim_step(denoise_fn, x_T.shape[0], schedule, guidance)
-    x = x_T.float()
-    for i in range(schedule.num_steps):
+    return ddim_sample_window(denoise_fn, x_T, schedule, step_noise, 0, schedule.num_steps,
+                              guidance, on_step=(lambda i, _kind: on_step(i)) if on_step else None)
+
+
+def ddim_sample_window(denoise_fn: Callable, x: torch.Tensor, schedule: DDIMSchedule,
+                       step_noise: Callable[[int], torch.Tensor], start: int, num_steps: int,
+                       guidance: GuidanceConfig = GuidanceConfig(),
+                       on_step: Optional[Callable[[int, str], None]] = None) -> torch.Tensor:
+    """Run `num_steps` sampling steps beginning at step `start`: a slice of
+    `ddim_sample`'s chain with the same step indices and noise.
+    on_step(i, "step"), if given, is called after each step."""
+    step = make_ddim_step(denoise_fn, x.shape[0], schedule, guidance)
+    x = x.float()
+    for i in range(start, start + num_steps):
         x = step(i, x, step_noise(i))
         if on_step is not None:
-            on_step(i)
+            on_step(i, "step")
+    return x
+
+
+def ddim_sample_window_pab(denoise_full: Callable, denoise_reuse: Callable, x: torch.Tensor,
+                           schedule: DDIMSchedule, step_noise: Callable[[int], torch.Tensor],
+                           start: int, num_steps: int, interval: int,
+                           guidance: GuidanceConfig = GuidanceConfig(),
+                           on_step: Optional[Callable[[int, str], None]] = None) -> torch.Tensor:
+    """Attention-broadcast window (PAB, arXiv:2408.12588): the window is cut
+    into cells of `interval` steps; the
+    first step of each cell computes attention fully and collects the
+    per-site outputs, the cell's other steps reuse them. A last cell may be
+    short. One call does what the JAX package's
+    `ddim_sample_window_pab_cells` plus its remainder call do.
+
+    denoise_full(x_k, t) -> (v, cache); denoise_reuse(x_k, t, cache) -> v.
+    on_step(i, "full" | "reuse"), if given, is called after each step."""
+    parts = ddim_step_parts(x.shape[0], schedule, guidance)
+    x = x.float()
+    cache = None
+    for j in range(num_steps):
+        i = start + j
+        x_k, t_k = parts.tile_k(x), parts.t_batch_at(i, x.device)
+        if j % interval == 0:
+            v_all, cache = denoise_full(x_k, t_k)
+        else:
+            v_all = denoise_reuse(x_k, t_k, cache)
+        x = parts.update(i, x, parts.combine_cfg(v_all), step_noise(i))
+        if on_step is not None:
+            on_step(i, "full" if j % interval == 0 else "reuse")
     return x
