@@ -5,11 +5,13 @@
 
 Phases, each printing JSON lines:
   device   the card's name and power limit; TF32 switched off explicitly
-  build    compile the hand-written kernels from `viewcrafter_tpu_torch/csrc`
+  build    compile the hand-written kernels from `viewcrafter_tpu_torch/csrc`;
+           a line of its own with ptxas's registers and spill bytes for the
+           two wgmma kernels (fullkv, dual cross-attention); a spill fails
   wiring   a small config whose every gate takes the kernels: `generate` on
-           the card against the same weights and noise on the CPU; three
-           times: default routes, both opt-in routes on, and routes on at 40
-           frames (where the temporal attentions leave the layer kernel for
+           the card against the same weights, noise and (fixed) prompt ids on
+           the CPU; three times: default routes, both opt-in routes on, and
+           routes on at 40 frames (where the temporal attentions leave the layer kernel for
            `temporal_attention_fused`)
   main     `VideoDiffusionEngine.generate` on the flagship `viewcrafter_25`
            (576x1024x25, B=1, K=2 CFG, 3 DDIM steps, seeded random weights),
@@ -28,10 +30,13 @@ Phases, each printing JSON lines:
            three flagship shapes
   kernels  each kernel against its plain torch twin at every input shape any
            phase above launched it with (all eight kernels, all paths, the
-           wiring runs included): max_abs_err and rms_rel_err beside
+           wiring runs included), and the two attention kernels once more
+           near one-hot (q scaled by 8): max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
-           function, or null), bound_ms
+           function, or null), bound_ms; for the two attention kernels also
+           mufu_bound_ms, their exponentials over the card's MUFU rate (16
+           per SM per clock at the card's maximum SM clock)
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
@@ -53,6 +58,13 @@ ROUTE_STEPS = 2
 PAB_STEPS, PAB_INTERVAL, PAB_SITES = 6, 3, ("down_0", "up_0", "init_attn")
 LONG_FRAMES = 40
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
+# the near one-hot sites of the two attention kernels (a main-path ds2 site,
+# the routes path's ds1 site)
+PEAKY_SITES = {"fullkv_attention": (50, 2304, 2304, 10, 64),
+               "dual_cross_attention": (50, 9216, 5, 64, 77, 256)}
+# the kernels redesigned around wgmma and TMA: their ptxas registers and
+# spills get a line of their own, and a spill fails the build phase
+WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel")
 MAIN_KERNELS = ("temporal_conv3", "fused_ff_layer", "fullkv_attention", "fused_temporal_layer")
 # the path whose launch count a kernel's row reports
 ROW_PATH = {**{k: "main" for k in MAIN_KERNELS}, "group_norm_fused": "routes",
@@ -134,7 +146,7 @@ def nbytes(*ts) -> int:
 # --------------------------------------------------------------------------
 
 
-def kernel_sites(peaks, gen, sites):
+def kernel_sites(peaks, gen, sites, mufu_rate):
     """Yield one result dict per (kernel, input shape) of `sites`, the shapes
     the path phases launched each kernel with (`kernels.launch_sites()`)."""
     import torch
@@ -150,7 +162,7 @@ def kernel_sites(peaks, gen, sites):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     def check(name, site, got, ref, kernel, plain, library, flops, nb, plain_reps=3,
-              max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7):
+              max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7, variant=None, exps=None):
         if got.dtype != ref.dtype or got.shape != ref.shape:
             raise AssertionError(f"{name} at {site}: {got.dtype} {tuple(got.shape)} against "
                                  f"{ref.dtype} {tuple(ref.shape)}")
@@ -163,12 +175,14 @@ def kernel_sites(peaks, gen, sites):
         err, tol = diff.abs().max().item(), max_rel * ref.abs().max().item()
         rms_rel = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
         del diff, ref
-        res = {"phase": "kernel", "name": name, "site": list(site),
-               "path_launches": sites[name][site], "max_abs_err": err, "tol": tol,
+        res = {"phase": "kernel", "name": name, "site": list(site), "variant": variant,
+               "path_launches": 0 if variant else sites[name][site], "max_abs_err": err, "tol": tol,
                "rms_rel_err": rms_rel, "rms_tol": rms_tol, "kernel_ms": time_ms(kernel),
                "plain_ms": time_ms(plain, reps=plain_reps, warmup=1),
                "library_ms": time_ms(library) if library is not None else None,
                **bound(flops, nb, peaks)}
+        if exps is not None:
+            res["mufu_bound_ms"] = exps / mufu_rate * 1e3
         emit(res)
         if not (err <= tol and rms_rel <= rms_tol):  # also catches NaN
             raise AssertionError(f"{name} at {site}: max_abs_err {err} (tol {tol}), "
@@ -203,9 +217,11 @@ def kernel_sites(peaks, gen, sites):
                     2.0 * n * c * 2 * i + 2.0 * n * i * c_out, nbytes(*args, y))
         del x, w1, w2, y, ref, args
 
-    for site in sites["fullkv_attention"]:
+    # each driven site, then one near one-hot site (q scaled by 8: the running
+    # maximum's rescale and the masked padding decide the result)
+    for site, q_mul in [(s, None) for s in sites["fullkv_attention"]] + [(PEAKY_SITES["fullkv_attention"], 8.0)]:
         b, s, sk, h, d = site
-        q, k, v = randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
+        q, k, v = randn(b, s, h, d, scale=q_mul or 1.0), randn(b, sk, h, d), randn(b, sk, h, d)
         y = fullkv_attention.fullkv_attention(q, k, v)
         ref = fullkv_attention.fullkv_attention_plain(q, k, v)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -213,7 +229,8 @@ def kernel_sites(peaks, gen, sites):
                     lambda: fullkv_attention.fullkv_attention(q, k, v),
                     lambda: fullkv_attention.fullkv_attention_plain(q, k, v),
                     lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                    4.0 * b * h * s * sk * d, nbytes(q, k, v, y), plain_reps=2)
+                    4.0 * b * h * s * sk * d, nbytes(q, k, v, y), plain_reps=2,
+                    variant=q_mul and f"peaky_q{q_mul:g}", exps=float(b * h * s * sk))
         del q, k, v, y, ref, qt, kt, vt
 
     for site in sites["fused_temporal_layer"]:
@@ -259,9 +276,9 @@ def kernel_sites(peaks, gen, sites):
         del x, y, ref, xcf, args, library
     torch.cuda.empty_cache()
 
-    for site in sites["dual_cross_attention"]:
+    for site, q_mul in [(s, None) for s in sites["dual_cross_attention"]] + [(PEAKY_SITES["dual_cross_attention"], 8.0)]:
         b, s, h, d, lt, li = site
-        q = randn(b, s, h, d)
+        q = randn(b, s, h, d, scale=q_mul or 1.0)
         kt, vt, ki, vi = randn(b, lt, h, d), randn(b, lt, h, d), randn(b, li, h, d), randn(b, li, h, d)
         args = (q, kt, vt, ki, vi)
         y = cross_attention.dual_cross_attention(*args)
@@ -274,7 +291,8 @@ def kernel_sites(peaks, gen, sites):
         yield check("dual_cross_attention", site, y, ref,
                     lambda: cross_attention.dual_cross_attention(*args),
                     lambda: cross_attention.dual_cross_attention_plain(*args), library,
-                    4.0 * b * h * s * (lt + li) * d, nbytes(*args, y), plain_reps=2)
+                    4.0 * b * h * s * (lt + li) * d, nbytes(*args, y), plain_reps=2,
+                    variant=q_mul and f"peaky_q{q_mul:g}", exps=float(b * h * s * (lt + li)))
         del q, y, ref, tr, args, library
 
     for site in sites["temporal_attention_fused"]:
@@ -338,6 +356,19 @@ def wiring_config(frames: int = 8):
     )
 
 
+def fixed_prompt_ids(n_words: int, device) -> "torch.Tensor":
+    """(1, 77) token ids as `prompt_ids` returns them, the same in every
+    process: the words' ids from numpy's default_rng(0) in the tokenizer's
+    hash-fallback range (without a BPE file that fallback takes Python's
+    salted `hash`, so the ids would change from one run to the next)."""
+    import numpy as np
+    import torch
+
+    ids = np.zeros((1, 77), np.int64)
+    ids[0, :n_words + 2] = [49406, *np.random.default_rng(0).integers(1000, 49000, n_words), 49407]
+    return torch.from_numpy(ids).to(device)
+
+
 def route_kwargs(routes: bool) -> dict:
     return {"cross_attn_impl": "auto", "gn_fused": True} if routes else {}
 
@@ -364,8 +395,7 @@ def run_wiring(gen, routes: bool = False, frames: int = 8) -> tuple:
     ref16.load_params(state)
     frames_t = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
                           device="cuda") * 2 - 1
-    ids = cuda.prompt_ids("a rotating view of a scene", 1)
-    uids = cuda.prompt_ids("", 1)
+    ids, uids = fixed_prompt_ids(6, "cuda"), fixed_prompt_ids(0, "cuda")
     noise = cuda.draw_noise(frames_t.shape, 2, gen)
     kernels.reset_launches()
     out = cuda.generate(frames_t, ids, uids, steps=2, noise=noise).cpu()
@@ -477,8 +507,7 @@ def drive(phase: str, cfg, gen, steps: int, routes: bool, profile_what=None, eng
         setup_s = time.perf_counter() - t0
     frames = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
                         device="cuda") * 2 - 1
-    ids = eng.prompt_ids("a rotating view of a scene", 1)
-    uids = eng.prompt_ids("", 1)
+    ids, uids = fixed_prompt_ids(6, "cuda"), fixed_prompt_ids(0, "cuda")
     guidance = GuidanceConfig()  # K = 2, scale 7.5, rescale 0.7
     stamps = []
 
@@ -601,6 +630,33 @@ def run_spatial_op(gen) -> tuple:
     return res, sites
 
 
+def wgmma_kernel_resources(log: str) -> list:
+    """ptxas's registers and spill bytes for each instance of the kernels in
+    WGMMA_FUNCTIONS, read from the `-Xptxas -v` build log."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+            cur = next(({"function": name} for f in WGMMA_FUNCTIONS if f in name), None)
+            if cur is not None and not any(r["function"] == name for r in out):
+                out.append(cur)
+            elif cur is not None:
+                cur = next(r for r in out if r["function"] == name)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return [r for r in out if "registers" in r and "spill_stores" in r]
+
+
 def merge_sites(*site_maps) -> dict:
     """Per kernel, the union of the input shapes several phases launched."""
     merged = {}
@@ -635,7 +691,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     peaks = card_peaks(name)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_rate = 16.0 * sms * max_sm_mhz * 1e6  # exponentials per second
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
+          "sms": sms, "max_sm_mhz": max_sm_mhz, "mufu_exp_per_s": mufu_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -646,6 +708,10 @@ def main() -> int:
     ptxas = [ln.strip() for ln in _lib.build_log.splitlines()
              if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    regs = wgmma_kernel_resources(_lib.build_log)
+    emit({"phase": "build_wgmma_kernels", "ptxas": regs})
+    if len(regs) < 2 * len(WGMMA_FUNCTIONS) or any(r["spill_stores"] or r["spill_loads"] for r in regs):
+        raise AssertionError(f"build: ptxas resources of the wgmma kernels {regs}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     wiring_sites = [run_wiring(gen)[1], run_wiring(gen, routes=True)[1],
@@ -716,7 +782,7 @@ def main() -> int:
     path_sites = {"main": main_sites, "routes": routes_sites, "long": long_sites, "op": op_sites}
     path_steps = {"main": FLAGSHIP_STEPS, "routes": ROUTE_STEPS, "long": ROUTE_STEPS, "op": 1}
     results = {}
-    for res in kernel_sites(peaks, gen, sites):
+    for res in kernel_sites(peaks, gen, sites, mufu_rate):
         results.setdefault(res["name"], []).append(res)
 
     rows = []
@@ -727,7 +793,7 @@ def main() -> int:
         # GroupNorms, in prepare and decode, are in `launches` only)
         path = ROW_PATH[kname]
         on_path = [dict(r, n=path_sites[path]["steps"][kname].get(tuple(r["site"]), 0))
-                   for r in results[kname]]
+                   for r in results[kname] if not r["variant"]]
         top = max(on_path, key=lambda r: r["n"] * r["bound_ms"])
         per_eval = {key: sum(r["n"] * r[key] for r in on_path) / path_steps[path]
                     for key in ("kernel_ms", "bound_ms")}
@@ -738,6 +804,7 @@ def main() -> int:
             "max_err": max(r["max_abs_err"] for r in results[kname]),
             "ms": top["kernel_ms"], "kernel_ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "mufu_bound_ms": top.get("mufu_bound_ms"),
             "library_ms": top["library_ms"],
             "ms_per_unet_eval": per_eval["kernel_ms"], "bound_ms_per_unet_eval": per_eval["bound_ms"],
         })

@@ -2,7 +2,9 @@
 
 Each kernel against its plain torch twin on the same bf16 inputs, at small
 and ragged shapes (rows not a multiple of the 128-row tile, Sk not a
-multiple of the 64-key tile, T < 32), and the model wiring: a small config
+multiple of the 128-key tile, Sq != Sk, a cross-attention stream of more than
+256 keys, T < 32), near one-hot softmax rows, reruns that must give the same
+bits, and the model wiring: a small config
 whose every gate takes the kernels, card against CPU. Skipped without a
 CUDA device. This file imports no JAX, so it runs on a machine without it:
 
@@ -80,7 +82,9 @@ def test_ff_layer_kernel(gen, n, c):
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 256, 256, 2, 64), (1, 100, 77, 3, 64),
-                                         (2, 130, 333, 2, 128), (1, 576, 576, 4, 64)])
+                                         (2, 130, 333, 2, 128), (1, 576, 576, 4, 64),
+                                         (2, 200, 333, 2, 64), (1, 256, 130, 2, 128),
+                                         (50, 144, 256, 20, 64)])
 def test_fullkv_attention_kernel(gen, b, sq, sk, h, d):
     q, k, v = _randn(gen, b, sq, h, d), _randn(gen, b, sk, h, d), _randn(gen, b, sk, h, d)
     _assert_close(fullkv_attention.fullkv_attention(q, k, v),
@@ -121,7 +125,8 @@ def test_group_norm_kernel(gen, n, s, c, dtype, silu, eps):
 
 @pytest.mark.parametrize("b,sq,h,d,lt,li", [(1, 200, 2, 64, 77, 16), (2, 128, 1, 128, 77, 16),
                                             (1, 300, 3, 64, 5, 1), (2, 640, 2, 64, 256, 256),
-                                            (50, 9216, 5, 64, 77, 256)])
+                                            (50, 9216, 5, 64, 77, 256), (2, 300, 2, 128, 77, 256),
+                                            (1, 200, 2, 64, 77, 300), (1, 130, 2, 128, 1, 351)])
 def test_dual_cross_attention_kernel(gen, b, sq, h, d, lt, li):
     q = _randn(gen, b, sq, h, d)
     kt, vt = _randn(gen, b, lt, h, d), _randn(gen, b, lt, h, d)
@@ -130,6 +135,32 @@ def test_dual_cross_attention_kernel(gen, b, sq, h, d, lt, li):
     got = cross_attention.dual_cross_attention(q, kt, vt, ki, vi)
     assert cross_attention.launches == n0 + 1
     _assert_close(got, cross_attention.dual_cross_attention_plain(q, kt, vt, ki, vi))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_kernels_peaky_softmax(gen, d):
+    """q scaled by 8: near one-hot rows, so the running-max rescale of
+    fullkv and the masking of padded keys in both kernels decide the result
+    (Sk and both streams are no multiple of a key tile)."""
+    q = _randn(gen, 2, 200, 2, d, scale=8.0)
+    k, v = _randn(gen, 2, 333, 2, d), _randn(gen, 2, 333, 2, d)
+    _assert_close(fullkv_attention.fullkv_attention(q, k, v),
+                  fullkv_attention.fullkv_attention_plain(q, k, v))
+    kt, vt = _randn(gen, 2, 77, 2, d), _randn(gen, 2, 77, 2, d)
+    ki, vi = _randn(gen, 2, 200, 2, d), _randn(gen, 2, 200, 2, d)
+    _assert_close(cross_attention.dual_cross_attention(q, kt, vt, ki, vi),
+                  cross_attention.dual_cross_attention_plain(q, kt, vt, ki, vi))
+
+
+def test_attention_kernels_rerun_same_bits(gen):
+    """No atomics and a fixed order of sums: a rerun gives the same bits."""
+    q, k, v = _randn(gen, 4, 600, 5, 64), _randn(gen, 4, 600, 5, 64), _randn(gen, 4, 600, 5, 64)
+    assert torch.equal(fullkv_attention.fullkv_attention(q, k, v),
+                       fullkv_attention.fullkv_attention(q, k, v))
+    kt, vt = _randn(gen, 4, 77, 5, 64), _randn(gen, 4, 77, 5, 64)
+    ki, vi = _randn(gen, 4, 256, 5, 64), _randn(gen, 4, 256, 5, 64)
+    assert torch.equal(cross_attention.dual_cross_attention(q, kt, vt, ki, vi),
+                       cross_attention.dual_cross_attention(q, kt, vt, ki, vi))
 
 
 @pytest.mark.parametrize("b,t,s,h,d", [(1, 40, 24, 2, 64), (2, 64, 8, 1, 128), (1, 7, 16, 2, 64),
@@ -167,7 +198,7 @@ def test_generate_wiring_matches_cpu(gen):
     card against CPU (the same check as chip_smoke.py's wiring phase)."""
     from chip_smoke import MAIN_KERNELS, run_wiring
 
-    res = run_wiring(gen)
+    res, _ = run_wiring(gen)
     assert all(res["launches"][k] > 0 for k in MAIN_KERNELS)
 
 
@@ -177,7 +208,7 @@ def test_generate_wiring_with_routes_matches_cpu(gen, frames):
     attentions leave the layer kernel for `temporal_attention_fused`."""
     from chip_smoke import run_wiring
 
-    res = run_wiring(gen, routes=True, frames=frames)
+    res, _ = run_wiring(gen, routes=True, frames=frames)
     assert res["launches"]["group_norm_fused"] > 0
     assert res["launches"]["dual_cross_attention"] > 0
     assert (res["launches"]["temporal_attention_fused"] > 0) == (frames > 32)

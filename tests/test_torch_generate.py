@@ -12,6 +12,12 @@ amplified by CFG (scale 7.5) over the steps: atol 5e-3 on a video in [-1, 1]
 (the observed gap is ~5e-4). bfloat16 on both sides: the port's bf16 video
 must lie within twice the JAX package's own bf16-vs-f32 distance (plus 1e-2)
 of the JAX bf16 video, as in test_torch_modules.py.
+
+Prompt ids: fixed (`torch_parity.fixed_prompt_ids`, default_rng(0)), not
+tokenized: without a BPE file the tokenizers hash words with Python's salted
+`hash`, which would draw other ids, and another bf16 margin, in every process.
+With these ids the bf16 error is 0.4824 against a limit of 0.8359
+(2 x 0.4129 + 1e-2): err / limit = 0.577, the same under any PYTHONHASHSEED.
 """
 
 import jax
@@ -36,8 +42,7 @@ def setup():
     cfg = engs["f32"][0].cfg
     rng = np.random.default_rng(8)
     frames = rng.uniform(-1, 1, (1, cfg.video_length, cfg.height, cfg.width, 3)).astype(np.float32)
-    ids = np.array(engs["f32"][0].prompt_ids("a rotating view of a scene", 1))
-    uids = np.array(engs["f32"][0].prompt_ids("", 1))
+    ids, uids = tp.fixed_prompt_ids(6), tp.fixed_prompt_ids(0)
     return params, engs, cfg, frames, ids, uids, {}
 
 

@@ -139,7 +139,7 @@ def tiny():
         ctx=rng.standard_normal((2, 77 + 16, cfg.unet.context_dim)).astype(np.float32),
         frames=rng.uniform(-1, 1, (1, 2, cfg.height, cfg.width, 3)).astype(np.float32),
         z=rng.standard_normal((1, 2) + lat + (cfg.vae.z_channels,)).astype(np.float32),
-        ids=np.array(engs["f32"][0].prompt_ids("a small scene", 1)),
+        ids=tp.fixed_prompt_ids(3),
     )
     return params, engs, inputs
 

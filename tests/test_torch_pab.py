@@ -53,8 +53,7 @@ def setup():
         ts=np.array([500.0, 500.0], np.float32),
         ctx=rng.standard_normal((2, 77 + 16, cfg.unet.context_dim)).astype(np.float32))
     frames = rng.uniform(-1, 1, (1, t, cfg.height, cfg.width, 3)).astype(np.float32)
-    ids = np.array(jeng.prompt_ids("a rotating view of a scene", 1))
-    uids = np.array(jeng.prompt_ids("", 1))
+    ids, uids = tp.fixed_prompt_ids(6), tp.fixed_prompt_ids(0)
     return params, jeng, teng, cfg, unet_in, frames, ids, uids
 
 

@@ -76,5 +76,18 @@ def jax_noise(rng, frames_shape, steps: int, z_channels: int, factor: int) -> Ge
                          posterior=as_t(np.stack(post, axis=1)))
 
 
+def fixed_prompt_ids(n_words: int, seed: int = 0) -> np.ndarray:
+    """Token ids of an `n_words`-word prompt as `prompt_ids` returns them,
+    (1, 77) int32 with SOT first, EOT after the words and zeros after that,
+    but the same in every process: the words' ids are drawn from
+    default_rng(seed) in the hash fallback's range [1000, 49000). (Without a
+    BPE file both packages' tokenizers take Python's salted `hash`, so their
+    ids change from one process to the next.)"""
+    words = np.random.default_rng(seed).integers(1000, 49000, n_words)
+    out = np.zeros((1, 77), np.int32)
+    out[0, :n_words + 2] = [49406, *words, 49407]
+    return out
+
+
 def max_err(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("runtime.cu", "temporal_conv.cu", "ff_layer.cu", "fullkv_attention.cu",
            "temporal_layer.cu", "groupnorm.cu", "cross_attention.cu", "temporal_attention.cu",
            "spatial_layer.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,7 +74,9 @@ def build() -> Path:
     the path of the shared library."""
     global build_log
     out = BUILD_DIR / f"libvc_kernels_{_digest()}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -92,7 +94,7 @@ def build() -> Path:
             if p.returncode:
                 failed.append(name)
         build_log = "\n".join(logs)
-        (BUILD_DIR / "build.log").write_text(build_log)
+        log.write_text(build_log)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
         tmp_lib = Path(tmp) / out.name

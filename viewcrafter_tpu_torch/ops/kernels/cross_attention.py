@@ -10,19 +10,18 @@ in f32; the *normalised* probabilities of both streams rounded to bf16 and
 multiplied with [v_text ; v_img] in one f32 accumulation; output rounded to
 bf16.
 
-Kernel (`csrc/cross_attention.cu`): the keys and values of one (batch, head)
-pair, text rows then image rows, zero-padded to a multiple of 16 (what the
-MMA tile needs; the TPU kernel padded to its 128 lanes), stay in shared
-memory while the block walks a run of 128-row query tiles. Each warp owns 16
-query rows and makes two passes over the keys, 16 at a time, on the tensor
-cores (mma.sync m16n8k16): the first keeps a running (max, sum) pair per
-stream, the second recomputes the logits, normalises, rounds to bf16 and
-accumulates P V. The stream boundary (77) is no multiple of a tile, so every
-column is classed by its index, and a column outside a stream adds an
-explicit 0 to that stream (a finite sentinel stands for "no maximum yet", so
-no row ever computes -inf minus -inf). Two passes rather than an online
-rescale keep the TPU kernel's rounding point: P is rounded after the
-division, not before.
+Kernel (`csrc/cross_attention.cu`), for Hopper: a block of two warpgroups
+walks 128-row query tiles of one (batch, head), 64 rows each; K and V of
+both streams come into shared memory once by TMA, and each warpgroup keeps a
+ring of its query rows in flight (TMA + mbarriers). On the flagship's shapes
+(D = 64, 65-80 text keys, 193-256 image keys) each stream's logits fit one
+wgmma accumulator whole (m64n80, m64n256): one pass per stream, max, one
+exp2 per logit, sum and its reciprocal, the *normalised* P rounded to bf16
+in registers (the TPU kernel's rounding point) and fed as the register A
+operand of O += P V, both streams into one O; the text softmax runs under
+the image Q K^T and the image softmax under the text P V. Other shapes take
+each stream in 64-key chunks, in one pass up to 256 keys (128 at D = 128),
+in two passes (max and sum, then P V) beyond.
 
 Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s) at the flagship ds1 site
 q (50, 9216, 5, 64), Lt = 77, Li = 256: 4 * 50 * 5 * 9216 * 333 * 64 =
