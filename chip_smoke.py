@@ -7,7 +7,9 @@ Phases, each printing JSON lines:
   device   the card's name and power limit; TF32 switched off explicitly
   build    compile the hand-written kernels from `viewcrafter_tpu_torch/csrc`;
            a line of its own with ptxas's registers and spill bytes for the
-           two wgmma kernels (fullkv, dual cross-attention); a spill fails
+           wgmma kernels (fullkv, dual cross-attention, and the GEMM core of
+           the temporal conv and the FF layer) and any ptxas note on their
+           wgmma; a spill fails
   wiring   a small config whose every gate takes the kernels: `generate` on
            the card against the same weights, noise and (fixed) prompt ids on
            the CPU; three times: default routes, both opt-in routes on, and
@@ -36,7 +38,10 @@ Phases, each printing JSON lines:
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
            function, or null), bound_ms; for the two attention kernels also
            mufu_bound_ms, their exponentials over the card's MUFU rate (16
-           per SM per clock at the card's maximum SM clock)
+           per SM per clock at the card's maximum SM clock); for the FF
+           layer also gemm_library_ms, its two products as F.linear calls
+           (cuBLAS), a yardstick for the GEMM core and not a library call
+           for the whole function
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
@@ -62,9 +67,9 @@ SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  
 # the routes path's ds1 site)
 PEAKY_SITES = {"fullkv_attention": (50, 2304, 2304, 10, 64),
                "dual_cross_attention": (50, 9216, 5, 64, 77, 256)}
-# the kernels redesigned around wgmma and TMA: their ptxas registers and
-# spills get a line of their own, and a spill fails the build phase
-WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel")
+# the kernels built around wgmma and TMA: their ptxas registers and spills
+# get a line of their own, and a spill fails the build phase
+WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel", "gemm_sm90_kernel")
 MAIN_KERNELS = ("temporal_conv3", "fused_ff_layer", "fullkv_attention", "fused_temporal_layer")
 # the path whose launch count a kernel's row reports
 ROW_PATH = {**{k: "main" for k in MAIN_KERNELS}, "group_norm_fused": "routes",
@@ -162,7 +167,7 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     def check(name, site, got, ref, kernel, plain, library, flops, nb, plain_reps=3,
-              max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7, variant=None, exps=None):
+              max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7, variant=None, exps=None, extra=None):
         if got.dtype != ref.dtype or got.shape != ref.shape:
             raise AssertionError(f"{name} at {site}: {got.dtype} {tuple(got.shape)} against "
                                  f"{ref.dtype} {tuple(ref.shape)}")
@@ -183,6 +188,8 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
                **bound(flops, nb, peaks)}
         if exps is not None:
             res["mufu_bound_ms"] = exps / mufu_rate * 1e3
+        for key, fn in (extra or {}).items():
+            res[key] = time_ms(fn)
         emit(res)
         if not (err <= tol and rms_rel <= rms_tol):  # also catches NaN
             raise AssertionError(f"{name} at {site}: max_abs_err {err} (tol {tol}), "
@@ -212,10 +219,13 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
         args = (x, lw, lb, w1, b1, w2, b2)
         y = ff_layer.fused_ff_layer(*args)
         ref = ff_layer.fused_ff_layer_plain(*args)
+        # the two products alone through cuBLAS, on operands of their shapes
+        xn, g = randn(n, c), randn(n, i)
         yield check("fused_ff_layer", site, y, ref, lambda: ff_layer.fused_ff_layer(*args),
                     lambda: ff_layer.fused_ff_layer_plain(*args), None,
-                    2.0 * n * c * 2 * i + 2.0 * n * i * c_out, nbytes(*args, y))
-        del x, w1, w2, y, ref, args
+                    2.0 * n * c * 2 * i + 2.0 * n * i * c_out, nbytes(*args, y),
+                    extra={"gemm_library_ms": lambda: (F.linear(xn, w1), F.linear(g, w2))})
+        del x, w1, w2, y, ref, args, xn, g
 
     # each driven site, then one near one-hot site (q scaled by 8: the running
     # maximum's rescale and the masked padding decide the result)
@@ -439,7 +449,9 @@ def run_wiring(gen, routes: bool = False, frames: int = 8) -> tuple:
 PROFILE_CATEGORIES = (
     ("port:fullkv", "vc::fullkv_kernel"), ("port:temporal_attention", "vc::temporal_att"),
     ("port:dual_cross_attention", "vc::dual_cross_kernel"), ("port:group_norm", "vc::gn_"),
-    ("port:layernorm", "vc::ln_apply_kernel"), ("port:gemm", "vc::gemm_kernel"),
+    ("port:layernorm", "vc::ln_apply_kernel"), ("port:temporal_conv", "LoadConv3"),
+    ("port:ff_gemm1_geglu", "LoadGeglu"), ("port:ff_gemm2", "LoadPlain"),
+    ("port:gemm", "vc::gemm_kernel"),
     ("cudnn_conv", "fprop"), ("cudnn_conv", "conv"), ("cublas_gemm", "gemm"),
     ("cublas_gemm", "nvjet"), ("softmax", "softmax"), ("reduce", "reduce"),
     ("elementwise", "elementwise"), ("cat", "Cat"),
@@ -709,7 +721,9 @@ def main() -> int:
              if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
     regs = wgmma_kernel_resources(_lib.build_log)
-    emit({"phase": "build_wgmma_kernels", "ptxas": regs})
+    emit({"phase": "build_wgmma_kernels", "ptxas": regs,
+          "wgmma_notes": sorted({ln.strip() for ln in _lib.build_log.splitlines()
+                                 if "gmma" in ln.lower()})})
     if len(regs) < 2 * len(WGMMA_FUNCTIONS) or any(r["spill_stores"] or r["spill_loads"] for r in regs):
         raise AssertionError(f"build: ptxas resources of the wgmma kernels {regs}")
 
@@ -806,6 +820,7 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "mufu_bound_ms": top.get("mufu_bound_ms"),
             "library_ms": top["library_ms"],
+            **({"gemm_library_ms": top["gemm_library_ms"]} if "gemm_library_ms" in top else {}),
             "ms_per_unet_eval": per_eval["kernel_ms"], "bound_ms_per_unet_eval": per_eval["bound_ms"],
         })
         if rows[-1]["launches"] <= 0:

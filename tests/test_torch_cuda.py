@@ -1,11 +1,12 @@
 """The port's hand-written CUDA kernels on the card (marker `cuda`).
 
 Each kernel against its plain torch twin on the same bf16 inputs, at small
-and ragged shapes (rows not a multiple of the 128-row tile, Sk not a
-multiple of the 128-key tile, Sq != Sk, a cross-attention stream of more than
-256 keys, T < 32), near one-hot softmax rows, reruns that must give the same
-bits, and the model wiring: a small config
-whose every gate takes the kernels, card against CPU. Skipped without a
+and ragged shapes (rows not a multiple of the 128-row tile, widths not a
+multiple of the 160-column tile, T = 1 and 2 for the temporal conv's zero
+padding, Sk not a multiple of the 128-key tile, Sq != Sk, a cross-attention
+stream of more than 256 keys, T < 32), near one-hot softmax rows, reruns
+that must give the same bits, and the model wiring: a small config whose
+every gate takes the kernels, card against CPU. Skipped without a
 CUDA device. This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -59,8 +60,14 @@ def _assert_close(got, ref, max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7):
     assert err <= tol and rms_rel <= rms_tol, (err, tol, rms_rel)
 
 
-@pytest.mark.parametrize("shape", [(1, 5, 24, 64, 64), (2, 25, 40, 320, 320), (1, 3, 8, 64, 128)])
+@pytest.mark.parametrize("shape", [
+    (1, 5, 24, 64, 64), (2, 25, 40, 320, 320), (1, 3, 8, 64, 128), (1, 1, 64, 64, 64),
+    (2, 2, 144, 72, 160), (2, 1, 576, 128, 72), (2, 25, 576, 320, 640), (2, 25, 144, 1280, 1280)])
 def test_temporal_conv3_kernel(gen, shape):
+    """T = 1 and 2 (every tap row past a frame edge reads the map's zero
+    fill, a negative row coordinate at the first frame), S = 64, 144 and
+    576 (tiles that cross frame boundaries), Cin != Cout, Cin = 72 (a
+    ragged second k panel), Cout = 72 (a ragged column block)."""
     b, t, s, cin, cout = shape
     x = _randn(gen, b, t, s, cin)
     w = _randn(gen, cout, 3 * cin, scale=(3 * cin) ** -0.5)
@@ -69,16 +76,24 @@ def test_temporal_conv3_kernel(gen, shape):
     got = temporal_conv.temporal_conv3(x, w, bias)
     assert temporal_conv.launches == n0 + 1
     _assert_close(got, temporal_conv.temporal_conv3_plain(x, w, bias))
+    assert torch.equal(got, temporal_conv.temporal_conv3(x, w, bias))  # a rerun: the same bits
 
 
-@pytest.mark.parametrize("n,c", [(200, 64), (1000, 320), (136, 1280)])
+@pytest.mark.parametrize("n,c", [(200, 64), (1000, 320), (136, 1280), (4100, 64), (7200, 1280),
+                                 (28801, 320)])
 def test_ff_layer_kernel(gen, n, c):
+    """N not a multiple of the 128-row tile; C = 64 (an 80-column h/gate
+    block past I = 256 and a 160-column output block past C_out = 64)."""
     i = 4 * c
     args = (_randn(gen, n, c), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
             _randn(gen, c, scale=0.1, dtype=torch.float32),
             _randn(gen, 2 * i, c, scale=c ** -0.5), _randn(gen, 2 * i, scale=0.1),
             _randn(gen, c, i, scale=i ** -0.5), _randn(gen, c, scale=0.1))
-    _assert_close(ff_layer.fused_ff_layer(*args), ff_layer.fused_ff_layer_plain(*args))
+    n0 = ff_layer.launches
+    got = ff_layer.fused_ff_layer(*args)
+    assert ff_layer.launches == n0 + 1
+    _assert_close(got, ff_layer.fused_ff_layer_plain(*args))
+    assert torch.equal(got, ff_layer.fused_ff_layer(*args))  # a rerun: the same bits
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 256, 256, 2, 64), (1, 100, 77, 3, 64),

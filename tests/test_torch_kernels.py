@@ -42,25 +42,36 @@ def _close(got: torch.Tensor, ref, atol: float):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("dt", DTYPES)
-def test_temporal_conv3_matches_pallas(dt):
+# (B, T, S, Cin, Cout): T = 1 and 2 put every shifted tap row past a frame
+# edge; S = 144 is a frame that the kernel's row tiles cross. The first
+# shape keeps the bare dtype as its id.
+CONV_SHAPES = {"": (2, 5, 16, 64, 128), "-t1s16": (1, 1, 16, 16, 24), "-t2s144": (2, 2, 144, 24, 16),
+               "-t5s144": (1, 5, 144, 16, 40), "-t1s144": (2, 1, 144, 8, 16)}
+
+
+@pytest.mark.parametrize("dt,shape", [pytest.param(dt, shape, id=dt + name)
+                                      for name, shape in CONV_SHAPES.items() for dt in DTYPES])
+def test_temporal_conv3_matches_pallas(dt, shape):
     jdt, tdt, atol = DTYPES[dt]
+    bsz, t, s, cin, cout = shape
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((2, 5, 16, 64))
-    w = rng.standard_normal((3, 64, 128)) * 64 ** -0.5
-    b = rng.standard_normal(128) * 0.1
+    x = rng.standard_normal((bsz, t, s, cin))
+    w = rng.standard_normal((3, cin, cout)) * cin ** -0.5
+    b = rng.standard_normal(cout) * 0.1
     (xj, xt), (wj, wt), (bj, bt) = _both(x, jdt, tdt), _both(w, jdt, tdt), _both(b, jnp.float32, torch.float32)
     ref = jtc.temporal_conv3(xj, wj, bj, interpret=True)
-    rows = wt.permute(2, 0, 1).reshape(128, 3 * 64)  # (3, Cin, Cout) -> (Cout, 3*Cin)
+    rows = wt.permute(2, 0, 1).reshape(cout, 3 * cin)  # (3, Cin, Cout) -> (Cout, 3*Cin)
     _close(ttc.temporal_conv3(xt, rows, bt), ref, atol)
 
 
-@pytest.mark.parametrize("dt", DTYPES)
-def test_ff_layer_matches_pallas(dt):
+@pytest.mark.parametrize("dt,lead", [pytest.param(dt, lead, id=dt + name)  # N = 160 and 168 rows
+                                     for name, lead in (("", (2, 5, 16)), ("-n168", (3, 7, 8)))
+                                     for dt in DTYPES])
+def test_ff_layer_matches_pallas(dt, lead):
     jdt, tdt, atol = DTYPES[dt]
     c, inner = 64, 256
     rng = np.random.default_rng(1)
-    x = rng.standard_normal((2, 5, 16, c)) * 0.5
+    x = rng.standard_normal(lead + (c,)) * 0.5
     lns, lnb = 1 + 0.1 * rng.standard_normal(c), 0.1 * rng.standard_normal(c)
     w1 = rng.standard_normal((c, 2 * inner)) * c ** -0.5
     b1 = 0.1 * rng.standard_normal(2 * inner)

@@ -4,10 +4,10 @@
 // operand-source functors and an epilogue functor.
 //
 // GEMM: C[M, N] = A[M, K] * B[N, K]^T. A is addressed through a functor that
-// maps (row, k) to the address of 8 consecutive bf16 (the temporal conv
-// gathers shifted frames this way), B row by row through a functor (the
-// GEGLU kernel interleaves h and gate rows of W1). Either may answer nullptr
-// for zeros. Requirements: K % 8 == 0 and 16-byte aligned operands.
+// maps (row, k) to the address of 8 consecutive bf16, B row by row through a
+// functor. Either may answer nullptr for zeros. Requirements: K % 8 == 0 and
+// 16-byte aligned operands. The temporal and spatial layers' projections run
+// on it; the temporal conv and the FF layer run on gemm_sm90.cuh.
 // Tile 128 x 128 x 32, 8 warps (2 x 4), each warp 64 x 32 outputs held in
 // registers; a 4-stage cp.async pipeline feeds shared memory; the epilogue
 // works on the accumulator fragments in registers.

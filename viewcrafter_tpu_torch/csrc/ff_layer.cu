@@ -1,84 +1,50 @@
 // Transformer FeedForward layer: LayerNorm -> GEGLU -> out projection.
 // Replaces viewcrafter_tpu/ops/pallas/ff_layer.py:fused_ff_layer.
 //
-// Three launches: the LayerNorm (f32 statistics, bf16 out); GEMM1 with the
-// bias + GEGLU in the epilogue; GEMM2 + bias. GEMM1 reads the rows of W1 in
-// an interleaved order (BRowGeglu) so that each thread's accumulators hold
-// both the h and the gate value of every product it gates, and the GEGLU
-// runs on registers. Rounding follows the TPU kernel: y = bf16(acc)
-// + b1 in bf16, GELU(gate) in f32 (exact erf) rounded to bf16, g = h * gelu
-// in bf16; out = bf16(acc2) + b2 in bf16. The normalised x (N, C) and the
-// gated hidden g (N, I) cross device memory (each written once and read by
-// the next GEMM); keeping them on chip is later work.
+// Three launches: the LayerNorm (f32 statistics, bf16 out; common.cuh), then
+// two products on the Hopper GEMM core (gemm_sm90.cuh: TMA, mbarrier ring,
+// wgmma, persistent):
+//  - GEMM1 xn W1^T with the bias + GEGLU in the epilogue. W1 (2I, C) is
+//    mapped as two batches, h rows and gate rows; each stage's B tile holds
+//    80 h rows and the 80 matching gate rows, so one m64n160 accumulator
+//    holds h in its columns 0..79 and gate in 80..159, the same thread holds
+//    both values of every output it gates, and the GEGLU runs on registers.
+//  - GEMM2 g W2^T + b2.
+// Rounding follows the TPU kernel: y = bf16(acc) + b1 in bf16, GELU(gate) in
+// f32 (exact erf) rounded to bf16, g = h * gelu in bf16; out = bf16(acc2) +
+// b2 in bf16. The normalised x (N, C) and the gated hidden g (N, I) cross
+// device memory (each written once and read by the next product): the
+// output accumulator of a row tile at C_out = 1280 does not fit registers,
+// so the three stages stay apart.
 // Bound: ops/kernels/ff_layer.py.
-#include "common.cuh"
-
-namespace vc {
-
-// Logical column n of GEMM1 -> row of W1 (2I, C). Within every 16 logical
-// columns, the first 8 are h columns o..o+7 and the next 8 the matching gate
-// columns, o = (n / 16) * 8: a thread's accumulator then holds h and gate of
-// the same output columns in neighbouring n8 tiles.
-struct BRowGeglu {
-  const bf16* w1;
-  int I, C;
-  __device__ __forceinline__ const bf16* operator()(int n) const {
-    const int o = (n / 16) * 8 + n % 8;
-    if (o >= I) return nullptr;
-    return w1 + (long)((n % 16) < 8 ? o : I + o) * C;
-  }
-};
-
-struct EpiGeglu {
-  bf16* g;          // (M, I)
-  const bf16* b1;   // (2I,)
-  long M;
-  int I;
-  __device__ __forceinline__ float gated(float h_acc, float gate_acc, int o) const {
-    const float h = bf16_round(bf16_round(h_acc) + __bfloat162float(b1[o]));
-    const float gate = bf16_round(bf16_round(gate_acc) + __bfloat162float(b1[I + o]));
-    const float gelu = bf16_round(0.5f * gate * (1.0f + erff(gate * 0.70710678118654752f)));
-    return h * gelu;
-  }
-  __device__ __forceinline__ void operator()(const Acc& acc, long row0, int col0, int lane) const {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int o = (col0 / 16 + p) * 8 + 2 * (lane % 4);
-      if (o >= I) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long row = row0 + 16 * i + lane / 4 + 8 * h;
-          if (row >= M) continue;
-          *reinterpret_cast<uint32_t*>(g + row * I + o) =
-              pack_bf16(gated(acc[i][2 * p][2 * h], acc[i][2 * p + 1][2 * h], o),
-                        gated(acc[i][2 * p][2 * h + 1], acc[i][2 * p + 1][2 * h + 1], o + 1));
-        }
-    }
-  }
-};
-
-}  // namespace vc
+#include "gemm_sm90.cuh"
 
 extern "C" int vc_ff_layer(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* xn, void* g,
                            void* out, long N, int C, int I, int Cout, float eps, void* stream) {
   using namespace vc;
+  constexpr int BN = 160;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C % 8 || I % 8 || Cout % 8) return (int)cudaErrorInvalidValue;
   bf16* xnb = static_cast<bf16*>(xn);
-  cudaError_t err = launch_ln_apply(static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
-                                    static_cast<const float*>(ln_b), xnb, N, C, eps, s);
+  bf16* gb = static_cast<bf16*>(g);
+  CUtensorMap m_xn, m_w1, m_g, m_w2;
+  cudaError_t err = make_panel_map(&m_xn, xnb, C, N, 1, C, G_BM);
+  if (err == cudaSuccess) err = make_panel_map(&m_w1, w1, C, I, 2, C, BN / 2);
+  if (err == cudaSuccess) err = make_panel_map(&m_g, gb, I, N, 1, I, G_BM);
+  if (err == cudaSuccess) err = make_panel_map(&m_w2, w2, I, Cout, 1, I, BN);
+  if (err == cudaSuccess)
+    err = launch_ln_apply(static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
+                          static_cast<const float*>(ln_b), xnb, N, C, eps, s);
   if (err != cudaSuccess) return (int)err;
 
-  ASrcPlain a1{xnb, C};
-  BRowGeglu b1r{static_cast<const bf16*>(w1), I, C};
-  EpiGeglu e1{static_cast<bf16*>(g), static_cast<const bf16*>(b1), N, I};
-  err = launch_gemm(N, (I + GEMM_BN / 2 - 1) / (GEMM_BN / 2), C, a1, b1r, e1, s);
+  const int row_blocks = (int)((N + G_BM - 1) / G_BM);
+  err = launch_gemm_sm90<BN>(m_xn, m_w1, GemmTiles{1, N, row_blocks, (I + BN / 2 - 1) / (BN / 2)},
+                             LoadGeglu<BN>{(C + 63) / 64},
+                             EpiGeglu<BN>{gb, static_cast<const bf16*>(b1), N, I}, s);
   if (err != cudaSuccess) return (int)err;
-
-  ASrcPlain a2{static_cast<const bf16*>(g), I};
-  BRowPlain b2r{static_cast<const bf16*>(w2), Cout, I};
-  EpiBias e2{static_cast<bf16*>(out), static_cast<const bf16*>(b2), N, Cout, BIAS_ROUND};
-  return (int)launch_gemm(N, col_blocks(Cout), I, a2, b2r, e2, s);
+  return (int)launch_gemm_sm90<BN>(
+      m_g, m_w2, GemmTiles{1, N, row_blocks, (Cout + BN - 1) / BN}, LoadPlain<BN>{(I + 63) / 64},
+      EpiBiasOut<BN>{static_cast<bf16*>(out), static_cast<const bf16*>(b2), N, Cout, BIAS_ROUND},
+      s);
 }

@@ -1,4 +1,4 @@
-// Hopper building blocks of the two attention kernels: TMA tensor maps (built
+// Hopper building blocks of the wgmma kernels: TMA tensor maps (built
 // on the host through the driver entry point that the runtime hands out, so
 // the library links no -lcuda), mbarrier waits, TMA tile loads, wgmma
 // descriptors for 128-byte swizzled tiles and the wgmma instructions
@@ -46,22 +46,25 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor seen as (batch, rows, cols) with the given row stride (in
-// elements, a multiple of 8) and a batch stride of rows * row stride; the
-// box is one 64-column panel of `box_rows` rows of one batch. Rows past
-// `rows` and columns past `cols` read as zeros. Encoding a map costs
-// microseconds of host time, which a small launch would feel, so the last
-// few maps are kept and reused when every argument matches (the caching
-// allocator hands the same addresses out again from one step to the next).
-inline cudaError_t make_panel_map(CUtensorMap* map, const void* base, long cols, long rows,
-                                  long batch, long row_stride, int box_rows) {
+// A bf16 tensor seen as (batch, rows, cols) with its own row and batch
+// strides (in elements, multiples of 8); the box is one 64-column panel of
+// `box_rows` rows of `box_batch` consecutive batches, written to shared
+// memory batch after batch (box_rows * box_batch rows of 128 bytes). Rows,
+// columns and batches outside the tensor, a negative coordinate included,
+// read as zeros. Encoding a map costs microseconds of host time, which a
+// small launch would feel, so the last few maps are kept and reused when
+// every argument matches (the caching allocator hands the same addresses out
+// again from one step to the next).
+inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, long cols, long rows,
+                                 long batch, long row_stride, long batch_stride, int box_rows,
+                                 int box_batch) {
   struct Entry {
     const void* base;
-    long cols, rows, batch, row_stride;
-    int box_rows;
+    long cols, rows, batch, row_stride, batch_stride;
+    int box_rows, box_batch;
     CUtensorMap map;
   };
-  constexpr int kEntries = 32;
+  constexpr int kEntries = 64;
   static Entry cache[kEntries];
   static int used = 0, next = 0;
   static std::mutex lock;
@@ -69,7 +72,8 @@ inline cudaError_t make_panel_map(CUtensorMap* map, const void* base, long cols,
   for (int i = 0; i < used; ++i) {
     const Entry& e = cache[i];
     if (e.base == base && e.cols == cols && e.rows == rows && e.batch == batch &&
-        e.row_stride == row_stride && e.box_rows == box_rows) {
+        e.row_stride == row_stride && e.batch_stride == batch_stride &&
+        e.box_rows == box_rows && e.box_batch == box_batch) {
       *map = e.map;
       return cudaSuccess;
     }
@@ -77,17 +81,24 @@ inline cudaError_t make_panel_map(CUtensorMap* map, const void* base, long cols,
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
-  cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)row_stride * rows * 2};
-  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
+  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, (cuuint32_t)box_batch};
   cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  cache[next] = Entry{base, cols, rows, batch, row_stride, box_rows, *map};
+  cache[next] = Entry{base, cols, rows, batch, row_stride, batch_stride, box_rows, box_batch, *map};
   next = (next + 1) % kEntries;
   used = used < kEntries ? used + 1 : kEntries;
   return cudaSuccess;
+}
+
+// The common case: batches packed back to back (batch stride rows * row
+// stride), a box of `box_rows` rows of one batch.
+inline cudaError_t make_panel_map(CUtensorMap* map, const void* base, long cols, long rows,
+                                  long batch, long row_stride, int box_rows) {
+  return make_tile_map(map, base, cols, rows, batch, row_stride, row_stride * rows, box_rows, 1);
 }
 
 // Raises a kernel's dynamic shared-memory limit to `bytes` once per device
@@ -297,6 +308,29 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<160>(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -375,6 +409,29 @@ __device__ __forceinline__ void wgmma_ss_init<128>(float (&d)[64], uint64_t da, 
         "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
         "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
         "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_init<160>(float (&d)[80], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63]),
+        "=f"(d[64]), "=f"(d[65]), "=f"(d[66]), "=f"(d[67]), "=f"(d[68]), "=f"(d[69]), "=f"(d[70]), "=f"(d[71]),
+        "=f"(d[72]), "=f"(d[73]), "=f"(d[74]), "=f"(d[75]), "=f"(d[76]), "=f"(d[77]), "=f"(d[78]), "=f"(d[79])
       : "l"(da), "l"(db), "r"(0));
 }
 

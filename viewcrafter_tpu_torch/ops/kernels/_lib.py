@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("runtime.cu", "temporal_conv.cu", "ff_layer.cu", "fullkv_attention.cu",
            "temporal_layer.cu", "groupnorm.cu", "cross_attention.cu", "temporal_attention.cu",
            "spatial_layer.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "gemm_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

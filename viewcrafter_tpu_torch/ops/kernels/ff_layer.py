@@ -6,21 +6,27 @@ Replaces the TPU kernel `viewcrafter_tpu/ops/pallas/ff_layer.py:fused_ff_layer`.
 Kernels (`csrc/ff_layer.cu`), three launches per call:
   1. the LayerNorm, f32 statistics in two passes over the row (as the TPU
      kernel), normalised rows stored in bf16;
-  2. GEMM1 whose B columns are interleaved so that one 128-wide output tile
-     holds 64 `h` columns and the 64 matching `gate` columns; the epilogue
-     adds b1 (in bf16, as the TPU kernel), applies h * GELU(gate) with the
-     exact erf GELU in f32 (`erff`; the TPU kernel used an A&S polynomial)
-     and stores the gated hidden g (N, 4C) in bf16;
+  2. GEMM1, whose B tile holds 80 rows of W1's `h` half and the 80 matching
+     rows of its `gate` half, so one 160-wide accumulator holds both values
+     of every output it gates; the epilogue adds b1 (in bf16, as the TPU
+     kernel), applies h * GELU(gate) with the exact erf GELU in f32 (`erff`;
+     the TPU kernel used an A&S polynomial) and stores the gated hidden g
+     (N, 4C) in bf16;
   3. GEMM2 g @ W2 + b2.
-The normalised x (N, C) and the (N, 4C) intermediate g cross device memory
-(g is 4x the activation bytes, written and read once); keeping them on chip
-is later work. Both GEMMs share the tiled tensor-core GEMM of
-`csrc/common.cuh` (mma.sync m16n8k16 with ldmatrix, 4-stage cp.async
-pipeline).
+Both products run on the Hopper GEMM core (`csrc/gemm_sm90.cuh`: TMA loads
+into a ring of mbarrier-guarded stages, one producer warpgroup, two wgmma
+consumer warpgroups of 64 rows, a persistent grid of one block per SM;
+tiles of 128 rows x 160 columns). The normalised x (N, C) and the (N, 4C)
+intermediate g cross device memory (g is 4x the activation bytes, written
+and read once): an output tile of 128 rows at C_out = 1280 does not fit the
+registers, so the product of g is not fused into GEMM1.
 
 Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s) at the flagship ds1 site
 N = 460800, C = 320: 2*N*C*8C + 2*N*4C*C = 1.13 TFLOP ~= 1.15 ms against
-0.59 GB of input/output traffic: bound by operations.
+0.59 GB of input/output traffic: bound by operations. The three launches
+have their own floors at that site: the LayerNorm 0.59 GB of bytes
+(0.18 ms), GEMM1 0.75 TFLOP (0.76 ms), GEMM2 the 1.18 GB read of g plus its
+output (0.44 ms): about 1.4 ms for this design.
 """
 
 from __future__ import annotations

@@ -2,21 +2,22 @@
 
 Replaces the TPU kernel `viewcrafter_tpu/ops/pallas/temporal_conv.py:temporal_conv3`.
 
-Kernel (`csrc/temporal_conv.cu`): an implicit GEMM over the rows (b, t, s) of
-x (B, T, S, Cin) with K = 3*Cin. The A operand addresses frame t+dt-1 for
-tap dt, or zeros at the T edges (SAME padding), so the three shifted copies
-never exist in memory; f32 accumulation over all three taps; the bias (rounded to
-the activation type, as the TPU kernel casts it) is added to the f32 sum in
-the epilogue, then one bf16 store.
+Kernel (`csrc/temporal_conv.cu`): an implicit GEMM on the Hopper GEMM core
+(`csrc/gemm_sm90.cuh`: TMA loads into a ring of mbarrier-guarded stages, one
+producer warpgroup, two wgmma consumer warpgroups of 64 rows, a persistent
+grid of one block per SM; tiles of 128 rows x 160 output channels). x is
+seen as (B, T*S, Cin) rows; tap dt of the rows starting at flat row r0 is
+the tile at row r0 + (dt-1)*S, and rows outside [0, T*S) read as zeros
+(the tensor map's bounds), which is the SAME padding at both frame edges,
+so the three shifted copies never exist in memory; f32 accumulation over
+all three taps; the bias (rounded to the activation type, as the TPU kernel
+casts it) is added to the f32 sum in the epilogue, then one bf16 store.
 
 Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s) at the flagship ds1 site
 (2, 25, 9216, 320) -> 320: 2 * 460800 * 960 * 320 = 283 GFLOP ~= 0.29 ms
 against 0.59 GB of traffic ~= 0.18 ms: bound by operations. The design reads
-each x element from device memory about once per column block (the tile is
-128 output channels wide) and keeps the accumulator in registers; it runs
-on the tensor cores through the shared GEMM of `csrc/common.cuh` (mma.sync
-m16n8k16 with ldmatrix, fed by a 4-stage cp.async pipeline), not yet
-wgmma/TMA.
+each x row from device memory about once (the resident tiles share their
+rows and their taps' rows in L2) and keeps the accumulator in registers.
 
 Weights are taken in the kernel's layout, (Cout, 3*Cin): row o holds tap 0's
 Cin weights, then tap 1's, then tap 2's, i.e. Conv3d's (Cout, Cin, 3, 1, 1)
@@ -40,13 +41,15 @@ def rows_from_conv3d(weight: torch.Tensor) -> torch.Tensor:
 
 
 def temporal_conv3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain torch: x (B, T, S, Cin), w (Cout,
-    3*Cin), b (Cout,) -> (B, T, S, Cout) in x.dtype."""
-    t, cin = x.shape[1], x.shape[-1]
-    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
+    """The kernel's arithmetic in plain torch, in its formulation: x (B, T,
+    S, Cin) as (B, T*S, Cin) rows with S zero rows on each side (frames -1
+    and T), tap dt the rows shifted by (dt-1)*S; w (Cout, 3*Cin), b (Cout,)
+    -> (B, T, S, Cout) in x.dtype."""
+    bsz, t, s, cin = x.shape
+    xp = torch.nn.functional.pad(x.reshape(bsz, t * s, cin), (0, 0, s, s))
     wf = w.to(x.dtype).float().view(-1, 3, cin)
-    acc = sum(xp[:, dt:dt + t].float() @ wf[:, dt].t() for dt in range(3))
-    return (acc + b.to(x.dtype).float()).to(x.dtype)
+    acc = sum(xp[:, dt * s:(dt + t) * s].float() @ wf[:, dt].t() for dt in range(3))
+    return (acc + b.to(x.dtype).float()).to(x.dtype).view(bsz, t, s, -1)
 
 
 def temporal_conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
