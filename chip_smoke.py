@@ -7,9 +7,10 @@ Phases, each printing JSON lines:
   device   the card's name and power limit; TF32 switched off explicitly
   build    compile the hand-written kernels from `viewcrafter_tpu_torch/csrc`;
            a line of its own with ptxas's registers and spill bytes for the
-           wgmma kernels (fullkv, dual cross-attention, and the GEMM core of
-           the temporal conv and the FF layer) and any ptxas note on their
-           wgmma; a spill fails
+           kernels built on wgmma or TMA (fullkv, dual cross-attention, the
+           GEMM core of the temporal conv, the FF layer and the temporal and
+           spatial layers' projections, the temporal layer's frame
+           attention) and any ptxas note on their wgmma; a spill fails
   wiring   a small config whose every gate takes the kernels: `generate` on
            the card against the same weights, noise and (fixed) prompt ids on
            the CPU; three times: default routes, both opt-in routes on, and
@@ -32,16 +33,19 @@ Phases, each printing JSON lines:
            three flagship shapes
   kernels  each kernel against its plain torch twin at every input shape any
            phase above launched it with (all eight kernels, all paths, the
-           wiring runs included), and the two attention kernels once more
-           near one-hot (q scaled by 8): max_abs_err and rms_rel_err beside
+           wiring runs included), the two attention kernels once more near
+           one-hot (q scaled by 8) and the temporal layer once more near
+           one-hot (Wqkv scaled by 4): max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
            function, or null), bound_ms; for the two attention kernels also
            mufu_bound_ms, their exponentials over the card's MUFU rate (16
-           per SM per clock at the card's maximum SM clock); for the FF
-           layer also gemm_library_ms, its two products as F.linear calls
-           (cuBLAS), a yardstick for the GEMM core and not a library call
-           for the whole function
+           per SM per clock at the card's maximum SM clock); for the FF,
+           temporal and spatial layers also gemm_library_ms, their two
+           products as F.linear calls (cuBLAS), and for the temporal layer
+           attn_library_ms, F.scaled_dot_product_attention over the frames of
+           permuted (B, S, H, T, D) views: yardsticks for the layer's parts,
+           not library calls for the whole function (library_ms stays null)
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
@@ -63,13 +67,15 @@ ROUTE_STEPS = 2
 PAB_STEPS, PAB_INTERVAL, PAB_SITES = 6, 3, ("down_0", "up_0", "init_attn")
 LONG_FRAMES = 40
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
-# the near one-hot sites of the two attention kernels (a main-path ds2 site,
-# the routes path's ds1 site)
+# the near one-hot sites of the attention kernels (main-path ds2 sites, the
+# routes path's ds1 site)
 PEAKY_SITES = {"fullkv_attention": (50, 2304, 2304, 10, 64),
-               "dual_cross_attention": (50, 9216, 5, 64, 77, 256)}
+               "dual_cross_attention": (50, 9216, 5, 64, 77, 256),
+               "fused_temporal_layer": (2, 25, 2304, 10, 64)}
 # the kernels built around wgmma and TMA: their ptxas registers and spills
 # get a line of their own, and a spill fails the build phase
-WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel", "gemm_sm90_kernel")
+WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel", "gemm_sm90_kernel",
+                   "frame_attention_kernel")
 MAIN_KERNELS = ("temporal_conv3", "fused_ff_layer", "fullkv_attention", "fused_temporal_layer")
 # the path whose launch count a kernel's row reports
 ROW_PATH = {**{k: "main" for k in MAIN_KERNELS}, "group_norm_fused": "routes",
@@ -243,23 +249,34 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
                     variant=q_mul and f"peaky_q{q_mul:g}", exps=float(b * h * s * sk))
         del q, k, v, y, ref, qt, kt, vt
 
-    for site in sites["fused_temporal_layer"]:
+    # each driven site, then one near one-hot site (Wqkv scaled by 4: logits
+    # 16 times larger, so the masked padded frames and the rounding of the
+    # probabilities decide the result)
+    for site, w_mul in ([(s, None) for s in sites["fused_temporal_layer"]]
+                        + [(PEAKY_SITES["fused_temporal_layer"], 4.0)]):
         b, t, s, h, d = site
         c = h * d
         x = randn(b, t, s, c)
         lw, lb = 1 + randn(c, scale=0.1, dtype=torch.float32), randn(c, scale=0.1, dtype=torch.float32)
-        wqkv, wo, bo = randn(3 * c, c, scale=c ** -0.5), randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
+        wqkv = randn(3 * c, c, scale=(w_mul or 1.0) * c ** -0.5)
+        wo, bo = randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
         kw = dict(heads=h, dim_head=d)
         args = (x, lw, lb, wqkv, wo, bo)
         y = temporal_layer.fused_temporal_layer(*args, **kw)
         ref = temporal_layer.fused_temporal_layer_plain(*args, **kw)
         n = b * t * s
+        # yardsticks on operands of the parts' shapes: the two products
+        # through cuBLAS, the frame attention through SDPA on permuted views
+        xn, att = randn(n, c), randn(n, c)
+        q5, k5, v5 = (randn(b, t, s, h, d).permute(0, 2, 3, 1, 4) for _ in range(3))
         yield check("fused_temporal_layer", site, y, ref,
                     lambda: temporal_layer.fused_temporal_layer(*args, **kw),
                     lambda: temporal_layer.fused_temporal_layer_plain(*args, **kw), None,
                     2.0 * n * c * 3 * c + 4.0 * b * s * h * t * t * d + 2.0 * n * c * c,
-                    nbytes(*args, y))
-        del x, wqkv, wo, y, ref, args
+                    nbytes(*args, y), variant=w_mul and f"peaky_wqkv{w_mul:g}",
+                    extra={"gemm_library_ms": lambda: (F.linear(xn, wqkv), F.linear(att, wo)),
+                           "attn_library_ms": lambda: F.scaled_dot_product_attention(q5, k5, v5)})
+        del x, wqkv, wo, y, ref, args, xn, att, q5, k5, v5
     torch.cuda.empty_cache()
 
     for site in sites["group_norm_fused"]:
@@ -329,12 +346,14 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
         y = spatial_layer.fused_spatial_layer(*args, **kw)
         ref = spatial_layer.fused_spatial_layer_plain(*args, **kw)
         n = b * s
+        xn, att = randn(n, c), randn(n, c)  # the two products alone through cuBLAS
         yield check("fused_spatial_layer", site, y, ref,
                     lambda: spatial_layer.fused_spatial_layer(*args, **kw),
                     lambda: spatial_layer.fused_spatial_layer_plain(*args, **kw), None,
                     2.0 * n * c * 3 * c + 4.0 * b * h * s * s * d + 2.0 * n * c * c,
-                    nbytes(*args, y), plain_reps=2)
-        del x, wqkv, wo, y, ref, args
+                    nbytes(*args, y), plain_reps=2,
+                    extra={"gemm_library_ms": lambda: (F.linear(xn, wqkv), F.linear(att, wo))})
+        del x, wqkv, wo, y, ref, args, xn, att
     torch.cuda.empty_cache()
 
 
@@ -448,10 +467,12 @@ def run_wiring(gen, routes: bool = False, frames: int = 8) -> tuple:
 # kernel-name patterns of the profile phase's categories, tried in order
 PROFILE_CATEGORIES = (
     ("port:fullkv", "vc::fullkv_kernel"), ("port:temporal_attention", "vc::temporal_att"),
-    ("port:dual_cross_attention", "vc::dual_cross_kernel"), ("port:group_norm", "vc::gn_"),
+    ("port:dual_cross_attention", "vc::dual_cross_kernel"),
+    ("port:group_norm", "vc::group_norm_kernel"), ("port:frame_attention", "vc::frame_attention"),
     ("port:layernorm", "vc::ln_apply_kernel"), ("port:temporal_conv", "LoadConv3"),
-    ("port:ff_gemm1_geglu", "LoadGeglu"), ("port:ff_gemm2", "LoadPlain"),
-    ("port:gemm", "vc::gemm_kernel"),
+    ("port:ff_gemm1_geglu", "LoadGeglu"),
+    # one instance of the core: the FF's GEMM2 and the temporal layer's two products
+    ("port:gemm_plain", "LoadPlain"),
     ("cudnn_conv", "fprop"), ("cudnn_conv", "conv"), ("cublas_gemm", "gemm"),
     ("cublas_gemm", "nvjet"), ("softmax", "softmax"), ("reduce", "reduce"),
     ("elementwise", "elementwise"), ("cat", "Cat"),
@@ -820,7 +841,7 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "mufu_bound_ms": top.get("mufu_bound_ms"),
             "library_ms": top["library_ms"],
-            **({"gemm_library_ms": top["gemm_library_ms"]} if "gemm_library_ms" in top else {}),
+            **{key: top[key] for key in ("gemm_library_ms", "attn_library_ms") if key in top},
             "ms_per_unet_eval": per_eval["kernel_ms"], "bound_ms_per_unet_eval": per_eval["bound_ms"],
         })
         if rows[-1]["launches"] <= 0:

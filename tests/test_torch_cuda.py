@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels on the card (marker `cuda`).
 
 Each kernel against its plain torch twin on the same bf16 inputs, at small
-and ragged shapes (rows not a multiple of the 128-row tile, widths not a
+and ragged shapes (rows not a multiple of the 192-row tile, widths not a
 multiple of the 160-column tile, T = 1 and 2 for the temporal conv's zero
 padding, Sk not a multiple of the 128-key tile, Sq != Sk, a cross-attention
-stream of more than 256 keys, T < 32), near one-hot softmax rows, reruns
+stream of more than 256 keys, T from 1 to 32 and pixels not a multiple of
+the 4-pixel tile in the temporal layer), near one-hot softmax rows, reruns
 that must give the same bits, and the model wiring: a small config whose
 every gate takes the kernels, card against CPU. Skipped without a
 CUDA device. This file imports no JAX, so it runs on a machine without it:
@@ -82,7 +83,7 @@ def test_temporal_conv3_kernel(gen, shape):
 @pytest.mark.parametrize("n,c", [(200, 64), (1000, 320), (136, 1280), (4100, 64), (7200, 1280),
                                  (28801, 320)])
 def test_ff_layer_kernel(gen, n, c):
-    """N not a multiple of the 128-row tile; C = 64 (an 80-column h/gate
+    """N not a multiple of the 192-row tile; C = 64 (an 80-column h/gate
     block past I = 256 and a 160-column output block past C_out = 64)."""
     i = 4 * c
     args = (_randn(gen, n, c), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
@@ -106,23 +107,39 @@ def test_fullkv_attention_kernel(gen, b, sq, sk, h, d):
                   fullkv_attention.fullkv_attention_plain(q, k, v))
 
 
-@pytest.mark.parametrize("b,t,s,h,d", [(1, 5, 24, 2, 64), (2, 25, 36, 5, 64), (1, 8, 16, 2, 128),
-                                       (1, 32, 8, 1, 64)])
-def test_temporal_layer_kernel(gen, b, t, s, h, d):
+@pytest.mark.parametrize("b,t,s,h,d,w_mul", [
+    (1, 5, 24, 2, 64, 1.0), (2, 25, 36, 5, 64, 1.0), (1, 8, 16, 2, 128, 1.0), (1, 32, 8, 1, 64, 1.0),
+    (2, 1, 13, 2, 64, 1.0), (1, 2, 150, 3, 64, 1.0), (2, 25, 150, 20, 64, 1.0),
+    (2, 32, 13, 2, 128, 1.0), (2, 25, 144, 20, 64, 1.0), (2, 25, 36, 5, 64, 4.0)])
+def test_temporal_layer_kernel(gen, b, t, s, h, d, w_mul):
+    """T = 1 (one key), 2, 25 and 32 (the padded 32-frame tile exactly
+    full); S = 13 and 150 (a ragged last 4-pixel tile); C = 1280 with 20
+    heads; D = 128 at B = 2; Wqkv scaled by 4 (near one-hot rows: the
+    masked padded frames and the rounding of the probabilities decide)."""
     c = h * d
     args = (_randn(gen, b, t, s, c), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
-            _randn(gen, c, scale=0.1, dtype=torch.float32), _randn(gen, 3 * c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1, dtype=torch.float32),
+            _randn(gen, 3 * c, c, scale=w_mul * c ** -0.5),
             _randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1))
-    _assert_close(temporal_layer.fused_temporal_layer(*args, heads=h, dim_head=d),
-                  temporal_layer.fused_temporal_layer_plain(*args, heads=h, dim_head=d))
+    n0 = temporal_layer.launches
+    got = temporal_layer.fused_temporal_layer(*args, heads=h, dim_head=d)
+    assert temporal_layer.launches == n0 + 1
+    _assert_close(got, temporal_layer.fused_temporal_layer_plain(*args, heads=h, dim_head=d))
+    # a rerun: the same bits
+    assert torch.equal(got, temporal_layer.fused_temporal_layer(*args, heads=h, dim_head=d))
 
 
 @pytest.mark.parametrize("n,s,c,dtype,silu,eps", [
     (2, 100, 64, torch.bfloat16, True, 1e-5), (3, 50, 320, torch.float32, False, 1e-6),
     (1, 7, 32, torch.float32, True, 1e-5), (2, 230400, 320, torch.bfloat16, False, 1e-6),
     (50, 9216, 320, torch.bfloat16, True, 1e-5), (1, 589824, 128, torch.bfloat16, True, 1e-6),
-    (50, 144, 2560, torch.bfloat16, True, 1e-5)])
+    (50, 144, 2560, torch.bfloat16, True, 1e-5), (2, 3600, 1280, torch.bfloat16, True, 1e-5),
+    (4, 144, 2560, torch.float32, True, 1e-6), (1, 64, 3840, torch.float32, False, 1e-5)])
 def test_group_norm_kernel(gen, n, s, c, dtype, silu, eps):
+    """One launch of a cooperative grid: activations that the blocks' shared
+    memory holds whole ((2, 3600, 1280), 18 MB, read once) and ones it does
+    not ((2, 230400, 320), 295 MB: the rest re-read); N = 50 at S = 144;
+    float32 at C = 2560 and at the widest C, 3840."""
     x = _randn(gen, n, s, c, scale=2.0, dtype=dtype) + 0.5
     w = 1 + _randn(gen, c, scale=0.1, dtype=torch.float32)
     b = _randn(gen, c, scale=0.1, dtype=torch.float32)
@@ -135,7 +152,7 @@ def test_group_norm_kernel(gen, n, s, c, dtype, silu, eps):
     else:
         _assert_close(got, ref)
     again = groupnorm.group_norm_fused(x, w, b, 32, eps, silu)
-    assert torch.equal(got, again)  # no atomics: a rerun gives the same bits
+    assert torch.equal(got, again)  # no float atomics: a rerun gives the same bits
 
 
 @pytest.mark.parametrize("b,sq,h,d,lt,li", [(1, 200, 2, 64, 77, 16), (2, 128, 1, 128, 77, 16),

@@ -96,13 +96,21 @@ def test_fullkv_attention_matches_pallas(dt):
     _close(tfa.fullkv_attention(qt, kt, vt), ref, atol)
 
 
-@pytest.mark.parametrize("dt", DTYPES)
-def test_temporal_layer_matches_pallas(dt):
+# (B, T, S, heads, dim_head): T = 1 (a softmax over one key) and 25 (the
+# flagship's frames), dim_head 128. The first shape keeps the bare dtype as
+# its id.
+LAYER_SHAPES = {"": (2, 5, 16, 2, 64), "-t1": (2, 1, 16, 2, 64), "-t25": (1, 25, 16, 2, 64),
+                "-d128": (2, 5, 16, 1, 128)}
+
+
+@pytest.mark.parametrize("dt,shape", [pytest.param(dt, shape, id=dt + name)
+                                      for name, shape in LAYER_SHAPES.items() for dt in DTYPES])
+def test_temporal_layer_matches_pallas(dt, shape):
     jdt, tdt, atol = DTYPES[dt]
-    heads, d = 2, 64
+    bsz, t, s, heads, d = shape
     c = heads * d
     rng = np.random.default_rng(3)
-    x = rng.standard_normal((2, 5, 16, c)) * 0.5
+    x = rng.standard_normal((bsz, t, s, c)) * 0.5
     lns, lnb = 1 + 0.1 * rng.standard_normal(c), 0.1 * rng.standard_normal(c)
     wqkv = rng.standard_normal((c, 3 * c)) * c ** -0.5
     wo = rng.standard_normal((c, c)) * c ** -0.5

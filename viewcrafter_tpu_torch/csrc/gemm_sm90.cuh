@@ -1,4 +1,5 @@
-// The Hopper GEMM core of the temporal conv and the FF layer:
+// The Hopper GEMM core of the port's products (the temporal conv, the FF
+// layer, and the projections of the temporal and spatial layers):
 // C = A B^T with bf16 operands and f32 accumulation on wgmma, fed by TMA.
 //
 // Output tiles are BM = 192 rows x BN columns, for (batch, row block, column
@@ -280,8 +281,12 @@ struct LoadGeglu {
 // (batches, rows, N) bf16.
 // ---------------------------------------------------------------------------
 
-// bias mode of common.cuh applied to acc: BIAS_F32 bf16(acc + bias),
-// BIAS_ROUND bf16(bf16(acc) + bias).
+// How a product's epilogue adds its bias (bf16, one value per column):
+//   BIAS_NONE:  out = bf16(acc)                (bias may be nullptr)
+//   BIAS_F32:   out = bf16(acc + bias)         (f32 add, one rounding)
+//   BIAS_ROUND: out = bf16(bf16(acc) + bias)   (bias added in bf16)
+enum BiasMode { BIAS_NONE = 0, BIAS_F32 = 1, BIAS_ROUND = 2 };
+
 template <int BN>
 struct EpiBiasOut {
   static constexpr int OUT_COLS = BN;
@@ -292,8 +297,9 @@ struct EpiBiasOut {
   int mode;
   __device__ __forceinline__ __nv_bfloat162 pair(const float (&acc)[BN / 2], int j, int h,
                                                  int c) const {
-    const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(bias + c);
     const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+    if (mode == BIAS_NONE) return __floats2bfloat162_rn(a0, a1);
+    const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(bias + c);
     if (mode == BIAS_ROUND)  // bf16 + bf16 is exact in f32 before its one rounding
       return __hadd2(__floats2bfloat162_rn(a0, a1), bv);
     const float2 bf = __bfloat1622float2(bv);

@@ -1,7 +1,7 @@
 // Hopper building blocks of the wgmma kernels: TMA tensor maps (built
 // on the host through the driver entry point that the runtime hands out, so
-// the library links no -lcuda), mbarrier waits, TMA tile loads, wgmma
-// descriptors for 128-byte swizzled tiles and the wgmma instructions
+// the library links no -lcuda), mbarrier waits, TMA tile loads and stores,
+// wgmma descriptors for 128-byte swizzled tiles and the wgmma instructions
 // themselves, setmaxnreg and named barriers.
 //
 // Shared-memory tiles: every tile is a stack of 64-column panels; a panel
@@ -46,52 +46,81 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor seen as (batch, rows, cols) with its own row and batch
-// strides (in elements, multiples of 8); the box is one 64-column panel of
-// `box_rows` rows of `box_batch` consecutive batches, written to shared
-// memory batch after batch (box_rows * box_batch rows of 128 bytes). Rows,
-// columns and batches outside the tensor, a negative coordinate included,
-// read as zeros. Encoding a map costs microseconds of host time, which a
-// small launch would feel, so the last few maps are kept and reused when
-// every argument matches (the caching allocator hands the same addresses out
-// again from one step to the next).
-inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, long cols, long rows,
-                                 long batch, long row_stride, long batch_stride, int box_rows,
-                                 int box_batch) {
+// A bf16 tensor of rank 3 or 4, innermost dimension first: dims[0] columns
+// (contiguous), dims[i] of stride strides[i - 1] elements (a multiple of 8,
+// in any order: a map may walk a tensor's axes in another order than its
+// memory does). The box is one 64-column panel of box[1] x ... rows, written
+// to shared memory innermost first (box[1] rows, then the next dimension's
+// steps): rows of 128 bytes. Elements outside the tensor, a negative
+// coordinate included, read as zeros, and a TMA store writes none there.
+// Encoding a map costs microseconds of host time, which a small launch would
+// feel, so the last maps are kept and reused when every argument matches (the
+// caching allocator hands the same addresses out again from one step to the
+// next).
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const long* dims,
+                            const long* strides, const int* box) {
   struct Entry {
     const void* base;
-    long cols, rows, batch, row_stride, batch_stride;
-    int box_rows, box_batch;
+    int rank;
+    long dims[4], strides[3];
+    int box[4];
     CUtensorMap map;
   };
-  constexpr int kEntries = 64;
+  // a flagship UNet eval asks for some 250 distinct maps (one per weight,
+  // activations at a few addresses): the cache holds them all
+  constexpr int kEntries = 512;
   static Entry cache[kEntries];
   static int used = 0, next = 0;
   static std::mutex lock;
+  if (rank < 3 || rank > 4 || box[0] != 64) return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> guard(lock);
   for (int i = 0; i < used; ++i) {
     const Entry& e = cache[i];
-    if (e.base == base && e.cols == cols && e.rows == rows && e.batch == batch &&
-        e.row_stride == row_stride && e.batch_stride == batch_stride &&
-        e.box_rows == box_rows && e.box_batch == box_batch) {
+    bool same = e.base == base && e.rank == rank;
+    for (int d = 0; same && d < rank; ++d)
+      same = e.dims[d] == dims[d] && e.box[d] == box[d] &&
+             (d == 0 || e.strides[d - 1] == strides[d - 1]);
+    if (same) {
       *map = e.map;
       return cudaSuccess;
     }
   }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
-  cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
-  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, (cuuint32_t)box_batch};
-  cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  Entry e{base, rank, {0, 0, 0, 0}, {0, 0, 0}, {0, 0, 0, 0}, {}};
+  cuuint64_t gdims[4], gstrides[3];
+  cuuint32_t gbox[4], elem[4] = {1, 1, 1, 1};
+  for (int d = 0; d < rank; ++d) {
+    e.dims[d] = dims[d];
+    e.box[d] = box[d];
+    gdims[d] = (cuuint64_t)dims[d];
+    gbox[d] = (cuuint32_t)box[d];
+    if (d > 0) {
+      e.strides[d - 1] = strides[d - 1];
+      gstrides[d - 1] = (cuuint64_t)strides[d - 1] * 2;
+    }
+  }
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+                  gdims, gstrides, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  cache[next] = Entry{base, cols, rows, batch, row_stride, batch_stride, box_rows, box_batch, *map};
+  e.map = *map;
+  cache[next] = e;
   next = (next + 1) % kEntries;
   used = used < kEntries ? used + 1 : kEntries;
   return cudaSuccess;
+}
+
+// (batch, rows, cols) with its own row and batch strides; the box is one
+// panel of `box_rows` rows of `box_batch` consecutive batches, batch after
+// batch.
+inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, long cols, long rows,
+                                 long batch, long row_stride, long batch_stride, int box_rows,
+                                 int box_batch) {
+  const long dims[3] = {cols, rows, batch}, strides[2] = {row_stride, batch_stride};
+  const int box[3] = {64, box_rows, box_batch};
+  return make_map(map, base, 3, dims, strides, box);
 }
 
 // The common case: batches packed back to back (batch stride rows * row
@@ -157,6 +186,32 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(sptr(dst)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(sptr(bar)), "r"(col), "r"(row),
         "r"(batch) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap& map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(sptr(dst)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(sptr(bar)), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3) : "memory");
+}
+
+// one box of shared memory out to `map` at (c0, c1, c2, c3); the parts of the
+// box outside the tensor are not written. The shared memory must stay as it
+// is until tma_store_wait_read().
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap& map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(&map)), "r"(sptr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap& map) {

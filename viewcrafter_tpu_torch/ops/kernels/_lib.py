@@ -40,7 +40,8 @@ _SIGNATURES = {
     "vc_fullkv_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "vc_temporal_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "vc_group_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "vc_group_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "vc_group_norm_blocks": (_I,),
     "vc_dual_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "vc_temporal_attention": (_P, _P, _P, _P, _I, _I, _L, _I, _F, _P),
     "vc_spatial_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

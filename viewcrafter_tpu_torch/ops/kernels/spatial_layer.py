@@ -22,7 +22,8 @@ crosses device memory once; the flash-style attention kernel of
 `csrc/fullkv_attention.cu`, which takes row strides and reads q, k, v as
 column blocks of that buffer (its online softmax rounds P against the
 running maximum, the twin against the final one); the out-projection GEMM.
-The GEMMs are the shared tensor-core GEMM of `csrc/common.cuh`.
+The two products run on the Hopper GEMM core `csrc/gemm_sm90.cuh` (TMA,
+mbarrier ring, wgmma, persistent).
 
 Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s) at (50, 9216, 320), 5 heads
 of 64: 2*N*C*3C + 4*B*H*S*S*D + 2*N*C*C = 5.81 TFLOP ~= 5.9 ms against

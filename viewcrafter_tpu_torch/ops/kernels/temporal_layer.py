@@ -4,18 +4,27 @@ per (pixel, head) -> out projection): hand-written CUDA kernels + plain twin.
 Replaces the TPU kernel
 `viewcrafter_tpu/ops/pallas/temporal_layer.py:fused_temporal_layer`.
 
-Kernels (`csrc/temporal_layer.cu`), staged in four launches per call:
+Kernels (`csrc/temporal_layer.cu`), four launches per call:
   1. the LayerNorm, f32 statistics, normalised rows stored in bf16;
-  2. the QKV GEMM; Q|K|V (N, 3C) are stored in bf16 (the TPU kernel rounds
-     them to bf16 too);
-  3. T x T attention per (pixel, head): f32 logits scaled by d^-1/2, f32
-     softmax over the T real keys (the TPU kernel padded T to 16 and masked
-     the padded keys), probabilities rounded to bf16, f32 PV, bf16 out;
-  4. the out-projection GEMM + bias (bias added in bf16, as the TPU kernel).
-At C = 1280 one pixel tile's Q|K|V does not fit the 227 KB of shared memory,
-so the normalised x, Q|K|V and the attention output cross device memory
-(C + 3C + C per row, written and read once); fusing the stages is later
-work. The GEMMs are the shared tensor-core GEMM of `csrc/common.cuh`.
+  2. the QKV product on the Hopper GEMM core (`csrc/gemm_sm90.cuh`: TMA,
+     mbarrier ring, wgmma, persistent); Q|K|V (N, 3C) stored in bf16 (the
+     TPU kernel rounds them to bf16 too);
+  3. the frame attention on the tensor cores: Q|K|V mapped for TMA as
+     (3C, T, S, B), frames inside pixels, so one box of 64 columns, 32 frames
+     and 4 pixels lands as one 32-row block per pixel (frames past T
+     zero-filled); one warp per pixel: f32 logits of Q K^T (mma.sync
+     m16n8k16) scaled by d^-1/2, f32 softmax over the T real keys (the TPU
+     kernel padded T to 16 and masked the padded keys), probabilities
+     normalised and then rounded to bf16, f32 P V, bf16 out, written back by
+     one TMA store that skips the padded frames;
+  4. the out-projection product on the GEMM core + bias (bias added in bf16,
+     as the TPU kernel).
+The normalised x, Q|K|V and the attention output cross device memory: 12 C
+elements per row in all (x in; xn, Q|K|V and att each out and in; out),
+3.54 GB at the ds1 site below, ~1.06 ms at 3.35 TB/s, above the function's
+own bound. Keeping Q|K|V on chip (the attention inside the QKV product's
+epilogue) was built and timed on the card and was no faster over a UNet
+eval (PERF.md).
 
 Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s) at the flagship ds1 site
 (2, 25, 9216, 320), 5 heads of 64: 2*N*C*3C + 2*N*C*C + 4*B*S*H*T*T*D
