@@ -31,6 +31,20 @@ Phases, each printing JSON lines:
            `temporal_attention_fused`
   op       `fused_spatial_layer`, which no model calls, once at each of its
            three flagship shapes
+  geometry_wiring
+           a small DUSt3R (128 wide, 2 heads of 64, 128x512 input: S = 256)
+           whose every attention takes `fullkv_attention`, on the card
+           against the same weights on the CPU, then 10 aligner steps on
+           both from the card's pointmaps
+  pipeline `ViewCrafterPipeline.run()` (single_view_target) from a seeded
+           numpy photo at dust3r_512 + viewcrafter_25, 300 alignment steps,
+           2 DDIM steps, seeded random weights: stage times (DUSt3R encode
+           and decode, the MST init, the Adam steps, the 25-view render, the
+           artifact writes, diffusion prepare / step / decode), peak memory,
+           an extrapolated 50-step seconds per video, the 72 fullkv launches of the geometry
+           stage (sites (2,576,576,16,64) x24 and (2,576,576,12,64) x48),
+           the four main-path kernels per UNet eval, the video's shape and
+           finiteness, the render's coverage and the files written
   kernels  each kernel against its plain torch twin at every input shape any
            phase above launched it with (all eight kernels, all paths, the
            wiring runs included), the two attention kernels once more near
@@ -38,7 +52,8 @@ Phases, each printing JSON lines:
            one-hot (Wqkv scaled by 4): max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
-           function, or null), bound_ms; for the two attention kernels also
+           function, or null), bound_ms (the DUSt3R sites of fullkv with SDPA
+           as library_ms, like every fullkv site); for the two attention kernels also
            mufu_bound_ms, their exponentials over the card's MUFU rate (16
            per SM per clock at the card's maximum SM clock); for the FF,
            temporal and spatial layers also gemm_library_ms, their two
@@ -48,7 +63,9 @@ Phases, each printing JSON lines:
            not library calls for the whole function (library_ms stays null)
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
-Then one {"kernels": [...]} line, the nvidia-smi line, and last
+Then one {"kernels": [...]} line (the fullkv row also lists its DUSt3R sites
+under "dust3r_sites", with their launches per geometry pass), the nvidia-smi
+line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with no
 CUDA device, or outside the repository, it exits non-zero and prints no
 result.
@@ -57,6 +74,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -66,6 +84,9 @@ FLAGSHIP_STEPS = 3
 ROUTE_STEPS = 2
 PAB_STEPS, PAB_INTERVAL, PAB_SITES = 6, 3, ("down_0", "up_0", "init_attn")
 LONG_FRAMES = 40
+GEOMETRY_WIRING_STEPS = 10
+PIPELINE_NITER, PIPELINE_STEPS = 300, 2
+PIPELINE_GEOMETRY_FULLKV = 24 + 12 * 2 * 2  # encoder; decoder self + cross, two streams
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
 # the near one-hot sites of the attention kernels (main-path ds2 sites, the
 # routes path's ds1 site)
@@ -663,6 +684,206 @@ def run_spatial_op(gen) -> tuple:
     return res, sites
 
 
+# --------------------------------------------------------------------------
+# the geometry front and the photo -> video pipeline
+# --------------------------------------------------------------------------
+
+
+def dust3r_wiring_config():
+    """A small DUSt3R whose every attention passes fullkv's gate: encoder and
+    decoder 128 wide with 2 heads (D = 64); at 128x512 input S = 256."""
+    from viewcrafter_tpu_torch.config import Dust3rConfig
+
+    return Dust3rConfig(enc_embed_dim=128, enc_depth=2, enc_num_heads=2, dec_embed_dim=128,
+                        dec_depth=2, dec_num_heads=2, dpt_feature_dim=32,
+                        dpt_hidden_dims=(16, 16, 32, 64))
+
+
+def run_geometry_wiring(gen) -> tuple:
+    """The small DUSt3R on the card against the same weights on the CPU
+    (float32 and bf16; the yardstick for the tolerance is the CPU bf16 run's
+    own distance from its float32 run), then GEOMETRY_WIRING_STEPS aligner
+    steps on the card against the same steps on the CPU, both from the
+    card's pointmaps. Returns (result, launch sites)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from viewcrafter_tpu_torch.align.global_align import GlobalAligner, SceneGraph
+    from viewcrafter_tpu_torch.config import AlignConfig
+    from viewcrafter_tpu_torch.models.dust3r import Dust3rModel
+    from viewcrafter_tpu_torch.models.layers import init_random_
+    from viewcrafter_tpu_torch.ops import kernels
+
+    cfg = dust3r_wiring_config()
+    with torch.device("cuda"):
+        card = Dust3rModel(cfg).eval()
+    init_random_(card, torch.Generator(device="cuda").manual_seed(2))
+    state = {k: v.float().cpu() for k, v in card.state_dict().items()}
+    ref32, ref16 = Dust3rModel(cfg, dtype=torch.float32).eval(), Dust3rModel(cfg).eval()
+    ref32.load_state_dict(state)
+    ref16.load_state_dict(state)
+    imgs = torch.rand((2, 128, 512, 3), generator=gen, device="cuda") * 2 - 1
+    pairs = torch.tensor([1, 0], device="cuda"), torch.tensor([0, 1], device="cuda")
+    kernels.reset_launches()
+    with torch.no_grad():
+        out = card.decode_pairs(*card.encode(imgs), *pairs, 128, 512)
+        torch.cuda.synchronize()
+        counts, sites = kernels.launch_counts(), kernels.launch_sites()
+        cpu = [m.decode_pairs(*m.encode(imgs.cpu()), *(p.cpu() for p in pairs), 128, 512)
+               for m in (ref32, ref16)]
+    res = {"phase": "geometry_wiring", "config": dataclasses.asdict(cfg), "input": [2, 128, 512, 3],
+           "launches": counts, "outputs": {}}
+    ok = True
+    for key in ("pts3d1", "conf1", "pts3d2_in_view1", "conf2"):
+        got, o32, o16 = out[key].float().cpu(), cpu[0][key], cpu[1][key]
+        scale = o32.abs().max().item()
+        err, yard = (got - o32).abs().max().item() / scale, (o16 - o32).abs().max().item() / scale
+        tol = 2 * yard + 1e-2
+        res["outputs"][key] = {"rel_err_vs_cpu_f32": err, "cpu_bf16_vs_f32": yard, "tol": tol,
+                               "finite": bool(torch.isfinite(got).all())}
+        ok &= err <= tol and res["outputs"][key]["finite"]
+    # the aligner on the card and on the CPU from the card's pointmaps
+    host = {k: v.float().cpu().numpy() for k, v in out.items()}
+    graph = SceneGraph(edges=np.array([[1, 0], [0, 1]]), pred_i=host["pts3d1"],
+                       pred_j=host["pts3d2_in_view1"], conf_i=host["conf1"],
+                       conf_j=host["conf2"], imgs=(imgs.cpu().numpy() + 1) / 2)
+    align = AlignConfig(niter=GEOMETRY_WIRING_STEPS)
+    scenes, losses = [], []
+    for device in ("cuda", "cpu"):
+        aligner = GlobalAligner(graph, align, device=device)
+        params, loss = aligner.optimize(aligner.init_mst())
+        scenes.append(aligner.get_scene(params))
+        losses.append(loss.cpu().numpy())
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    res["align"] = {"steps": GEOMETRY_WIRING_STEPS, "loss_card": losses[0].tolist(),
+                    "loss_cpu": losses[1].tolist(), "tol": 1e-3,
+                    **{f"{k}_rel_err": rel(getattr(scenes[0], k), getattr(scenes[1], k))
+                       for k in ("depths", "poses", "focals")}}
+    ok &= rel(losses[0], losses[1]) <= 1e-3 and all(
+        res["align"][f"{k}_rel_err"] <= 1e-3 for k in ("depths", "poses", "focals"))
+    emit(res)
+    n_attn = cfg.enc_depth + 4 * cfg.dec_depth  # encoder self; decoder self + cross, 2 streams
+    if not ok or counts["fullkv_attention"] != n_attn or sum(counts.values()) != n_attn:
+        raise AssertionError(f"geometry_wiring: {res}")
+    return res, sites
+
+
+def pipeline_input(seed: int, h: int, w: int):
+    """A seeded photo made with numpy alone (no PIL): smooth colour fields
+    at the diffusion resolution (h, w), and its 2x2-average downsample at
+    DUSt3R's resolution, as a `LoadedImage` in [-1, 1]."""
+    import numpy as np
+
+    from viewcrafter_tpu_torch.utils.io import LoadedImage
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    img = np.zeros((h, w, 3), np.float32)
+    for c in range(3):
+        for _ in range(4):
+            fy, fx, ph = rng.uniform(0.5, 4), rng.uniform(0.5, 4), rng.uniform(0, 6.3)
+            img[..., c] += np.sin(2 * np.pi * (fy * yy + fx * xx) + ph) / 4
+    img_ori = np.clip(img + rng.normal(0, 0.05, img.shape), -1, 1).astype(np.float32)
+    small = img_ori.reshape(h // 2, 2, w // 2, 2, 3).mean(axis=(1, 3))
+    return LoadedImage(img=small.astype(np.float32), img_ori=img_ori, index=0)
+
+
+def run_pipeline() -> tuple:
+    """`ViewCrafterPipeline.run()` in single_view_target at dust3r_512 +
+    viewcrafter_25, PIPELINE_NITER alignment steps and PIPELINE_STEPS DDIM
+    steps, seeded random weights, from a seeded numpy photo: stage times,
+    peak memory, the fullkv launches of the geometry stage (encoder 24 +
+    decoder 48 for the duplicated photo's one pair of images and two
+    directed pairs), the four main-path kernels per UNet eval, the video's
+    shape and finiteness and the render's coverage. Returns (result, launch
+    sites)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
+
+    stamps = []
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        stamps.append((name, time.perf_counter(), kernels.launch_counts(),
+                       kernels.launch_sites()))
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        opts = InferenceOptions(mode="single_view_target", model="viewcrafter_25",
+                                dust3r_model="dust3r_512", niter=PIPELINE_NITER,
+                                ddim_steps=PIPELINE_STEPS, out_dir=out_dir, exp_name="smoke",
+                                ckpt_path=None, model_path=None)
+        t0 = time.perf_counter()
+        pipe = ViewCrafterPipeline(opts, on_stage=on_stage)  # device=None: the card
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        image = pipeline_input(0, pipe.model_cfg.height, pipe.model_cfg.width)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t_start = time.perf_counter()
+        video = pipe.run(images=[image])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        written = sorted(os.listdir(opts.save_dir))
+    counts, sites = kernels.launch_counts(), kernels.launch_sites()
+    names = [st[0] for st in stamps]
+    times = dict(zip(names, np.diff([t_start] + [st[1] for st in stamps])))
+    step_s = [st[1] - prev[1] for st, prev in zip(stamps[1:], stamps) if st[0] == "step"]
+    at_align = stamps[names.index("align")]
+    geometry = at_align[2]["fullkv_attention"]
+    first_step = names.index("prepare")
+    last_step = len(names) - 1 - names[::-1].index("step")
+    per_eval = {k: (stamps[last_step][2][k] - stamps[first_step][2][k]) / PIPELINE_STEPS
+                for k in counts}
+    frames = pipe.guidance_frames
+    s_per_step = statistics.median(step_s[1:] or step_s)
+    geometry_s = sum(times[n] for n in ("dust3r_encode", "dust3r_decode", "align_init", "align"))
+    res = {
+        "phase": "pipeline", "mode": opts.mode, "dust3r": opts.dust3r_model, "model": opts.model,
+        "niter": PIPELINE_NITER, "ddim_steps": PIPELINE_STEPS, "setup_s": setup_s,
+        "stage_s": {n: times[n] for n in ("dust3r_encode", "dust3r_decode", "align_init",
+                                          "align", "render", "write_render", "prepare",
+                                          "decode", "write_video")},
+        "step_s": step_s, "s_per_step": s_per_step, "total_s": t_end - t_start,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        # 50 DDIM steps at this run's median step: an extrapolation, not a
+        # measurement of a 50-step run; with and without the file writing
+        "extrapolated_s_per_video_50_steps": (
+            t_end - t_start - sum(step_s) + 50 * s_per_step),
+        "extrapolated_s_per_video_50_steps_no_writes": (
+            t_end - t_start - sum(step_s) + 50 * s_per_step - times["write_render"]
+            - times["write_video"]),
+        "geometry_s": geometry_s, "fullkv_launches_geometry": geometry,
+        "launches": counts, "launches_per_unet_eval": per_eval,
+        "output_shape": list(video.shape), "finite": bool(np.isfinite(video).all()),
+        "output_abs_mean": float(np.abs(video).mean()),
+        "render_coverage": float((frames[1:] > 0).any(-1).mean()),
+        "scene_focal": float(pipe.scene.focals[-1]), "written": written,
+        "fullkv_sites_geometry": [[list(k), n] for k, n in at_align[3]["fullkv_attention"].items()],
+    }
+    emit(res)
+    expect = [25, 576, 1024, 3]
+    if res["output_shape"] != expect or not res["finite"] or res["render_coverage"] <= 0:
+        raise AssertionError(f"pipeline: {res}")
+    if geometry != PIPELINE_GEOMETRY_FULLKV:
+        raise AssertionError(f"pipeline: fullkv launched {geometry} times in the geometry "
+                             f"stage, expected {PIPELINE_GEOMETRY_FULLKV}")
+    require_launches("pipeline", res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
+                                       "fused_ff_layer": 33, "temporal_conv3": 88})
+    del pipe
+    torch.cuda.empty_cache()
+    return res, sites, at_align[3]
+
+
 def wgmma_kernel_resources(log: str) -> list:
     """ptxas's registers and spill bytes for each instance of the kernels in
     WGMMA_FUNCTIONS, read from the `-Xptxas -v` build log."""
@@ -805,11 +1026,14 @@ def main() -> int:
 
     op_res, op_sites = run_spatial_op(gen)
 
+    _, geo_wiring_sites = run_geometry_wiring(gen)
+    _, pipe_sites, dust3r_sites = run_pipeline()
+
     # every kernel is held against its twin at every shape any driven path
     # launched it with (the wiring runs included); GroupNorm also at one
     # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
     # path's launch count a kernel's row reports.
-    sites = merge_sites(*wiring_sites, *(s["all"] for s in (
+    sites = merge_sites(*wiring_sites, geo_wiring_sites, pipe_sites, *(s["all"] for s in (
         main_sites, routes_sites, *pab_sites, long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 4, 1)] = 0
     emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})
@@ -846,6 +1070,14 @@ def main() -> int:
         })
         if rows[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was never launched on the {path} path")
+    # fullkv's DUSt3R sites: launches per geometry pass beside the times
+    fullkv_row = next(r for r in rows if r["name"] == "fullkv_attention")
+    fullkv_row["dust3r_sites"] = [
+        {"site": r["site"], "launches_per_geometry_pass": dust3r_sites["fullkv_attention"][
+            tuple(r["site"])], **{k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "bound_by", "mufu_bound_ms")}}
+        for r in results["fullkv_attention"]
+        if not r["variant"] and tuple(r["site"]) in dust3r_sites["fullkv_attention"]]
     emit({"kernels": rows})
     emit({"phase": "end", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

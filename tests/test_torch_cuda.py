@@ -100,7 +100,8 @@ def test_ff_layer_kernel(gen, n, c):
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 256, 256, 2, 64), (1, 100, 77, 3, 64),
                                          (2, 130, 333, 2, 128), (1, 576, 576, 4, 64),
                                          (2, 200, 333, 2, 64), (1, 256, 130, 2, 128),
-                                         (50, 144, 256, 20, 64)])
+                                         (50, 144, 256, 20, 64), (2, 576, 576, 16, 64),
+                                         (2, 576, 576, 12, 64)])
 def test_fullkv_attention_kernel(gen, b, sq, sk, h, d):
     q, k, v = _randn(gen, b, sq, h, d), _randn(gen, b, sk, h, d), _randn(gen, b, sk, h, d)
     _assert_close(fullkv_attention.fullkv_attention(q, k, v),
@@ -244,3 +245,34 @@ def test_generate_wiring_with_routes_matches_cpu(gen, frames):
     assert res["launches"]["group_norm_fused"] > 0
     assert res["launches"]["dual_cross_attention"] > 0
     assert (res["launches"]["temporal_attention_fused"] > 0) == (frames > 32)
+
+
+def test_geometry_wiring_matches_cpu(gen):
+    """A small DUSt3R whose every attention takes the fullkv kernel, card
+    against CPU, then aligner steps on both (chip_smoke.py's geometry_wiring
+    phase)."""
+    from chip_smoke import run_geometry_wiring
+
+    res, sites = run_geometry_wiring(gen)
+    assert res["launches"]["fullkv_attention"] > 0
+    assert all(s[1] == 256 and s[4] == 64 for s in sites["fullkv_attention"])
+
+
+@pytest.mark.parametrize("z_order", ["exact", "packed"])
+def test_render_trajectory_on_the_card_matches_cpu(gen, z_order):
+    """The rasterizer's sorts, searches and scatters on the card: the same
+    frames as on the CPU (a projection rounded otherwise may move a point
+    across a pixel border, which changes that pixel alone)."""
+    from viewcrafter_tpu_torch.ops.rasterize import render_trajectory
+
+    pts = torch.randn((150000, 3), generator=gen, device="cuda") + torch.tensor(
+        [0.0, 0.0, 4.0], device="cuda")
+    cols = torch.rand((150000, 3), generator=gen, device="cuda")
+    w2c = torch.eye(4, device="cuda").repeat(2, 1, 1)
+    w2c[1, 0, 3] = 0.1
+    K = torch.tensor([[300.0, 0, 256], [0, 300.0, 144], [0, 0, 1]], device="cuda")
+    got = render_trajectory(pts, cols, w2c, K, 288, 512, z_order=z_order).cpu()
+    ref = render_trajectory(pts.cpu(), cols.cpu(), w2c.cpu(), K.cpu(), 288, 512, z_order=z_order)
+    close = ((got - ref).abs() <= 1e-5).all(-1).float().mean().item()
+    assert (ref > 0).any(-1).float().mean().item() > 0.5
+    assert close >= 0.999, close

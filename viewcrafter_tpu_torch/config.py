@@ -1,4 +1,5 @@
-"""Typed configuration of the latent video diffusion stage.
+"""Typed configuration of the latent video diffusion stage, DUSt3R and the
+global alignment.
 
 The port's own copy of the JAX package's presets (same dataclasses, same
 numbers), so that the port imports nothing of the JAX package.
@@ -134,6 +135,60 @@ class ModelConfig:
     width: int = 1024
 
 
+@dataclasses.dataclass(frozen=True)
+class Dust3rConfig:
+    """AsymmetricCroCo3DStereo ViT-L/Base-decoder/DPT at 512
+    (extern/dust3r/dust3r/model.py:154 and croco defaults)."""
+
+    img_size: Tuple[int, int] = (512, 512)  # max; actual inputs are multiples of 16
+    patch_size: int = 16
+    enc_embed_dim: int = 1024
+    enc_depth: int = 24
+    enc_num_heads: int = 16
+    dec_embed_dim: int = 768
+    dec_depth: int = 12
+    dec_num_heads: int = 12
+    mlp_ratio: float = 4.0
+    rope_freq: float = 100.0
+    dpt_feature_dim: int = 256
+    dpt_hidden_dims: Tuple[int, ...] = (96, 192, 384, 768)
+    head_type: str = "dpt"  # or "linear"
+    depth_mode: str = "exp"  # pts = d/|d| * expm1(|d|)
+    conf_mode: str = "exp"  # conf = 1 + exp(x)
+
+
+DUST3R_REGISTRY = {
+    # the released DUSt3R_ViTLarge_BaseDecoder_512_dpt architecture
+    "dust3r_512": Dust3rConfig(),
+    # dev/test preset: tiny dims, same topology (used by tests and CLI smoke)
+    "dust3r_tiny": Dust3rConfig(
+        enc_embed_dim=64, enc_depth=2, enc_num_heads=2,
+        dec_embed_dim=32, dec_depth=4, dec_num_heads=2,
+        dpt_feature_dim=16, dpt_hidden_dims=(8, 8, 16, 32),
+    ),
+}
+
+
+def get_dust3r_config(name: str) -> Dust3rConfig:
+    try:
+        return DUST3R_REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown dust3r model {name!r}; available: {sorted(DUST3R_REGISTRY)}"
+        ) from None
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignConfig:
+    """Global point-cloud alignment (extern/dust3r/dust3r/cloud_opt)."""
+
+    niter: int = 300
+    lr: float = 0.01
+    schedule: str = "linear"
+    min_conf_thr: float = 3.0
+    focal_break: float = 20.0
+
+
 # ---------------------------------------------------------------------------
 # Registry of named presets (the four reference model variants).
 # ---------------------------------------------------------------------------
@@ -147,6 +202,13 @@ def register_model(cfg: ModelConfig) -> ModelConfig:
 
 
 register_model(ModelConfig(name="viewcrafter_25"))  # 576x1024, 25 frames
+
+register_model(
+    ModelConfig(
+        name="viewcrafter_16",
+        video_length=16,
+    )
+)
 
 register_model(
     ModelConfig(

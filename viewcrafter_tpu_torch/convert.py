@@ -5,6 +5,11 @@ mechanical walk over each flax tree:
   - Dense `kernel` (in, out)            -> `weight` (out, in)
   - Conv `kernel` (kh, kw, in, out)      -> `weight` (out, in, kh, kw)
   - Conv3d `kernel` (3, 1, 1, in, out)   -> `weight` (out, in, 3, 1, 1)
+  - ConvTranspose `kernel` (kh, kw, in, out), at the scopes named as such
+                                         -> `weight` (in, out, kh, kw) with both
+                                            spatial axes flipped (flax does not
+                                            flip the kernel, torch's
+                                            ConvTranspose2d does)
   - `GroupNorm_0`/`LayerNorm_0` {scale, bias} -> the norm's {weight, bias}
   - Embed `embedding`                    -> `weight`
   - any other leaf keeps its name.
@@ -16,7 +21,7 @@ released torch checkpoints into the port is not done here.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Collection, Mapping
 
 import numpy as np
 import torch
@@ -34,9 +39,12 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (key,), val
 
 
-def convert_tree(tree: Mapping) -> dict:
+def convert_tree(tree: Mapping, conv_transpose: Collection[str] = ()) -> dict:
     """One flax parameter tree -> a port state dict (float32 tensors). Every
-    leaf lands in exactly one entry; two leaves mapping to one name raise."""
+    leaf lands in exactly one entry; two leaves mapping to one name raise.
+    conv_transpose: the scope names (the last scope of a path) whose rank-4
+    kernels belong to a ConvTranspose; a rank-4 kernel under any other scope
+    is a Conv's."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     state = {}
@@ -50,6 +58,8 @@ def convert_tree(tree: Mapping) -> dict:
             name = "weight"
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 4 and scope and scope[-1] in conv_transpose:
+                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 5:
@@ -71,3 +81,13 @@ def from_jax_params(params) -> dict:
     `VideoDiffusionEngine.load_params`."""
     get = params.get if isinstance(params, Mapping) else lambda n: getattr(params, n)
     return {name: convert_tree(get(name)) for name in SUBMODELS}
+
+
+DUST3R_CONV_TRANSPOSE = ("act1_up", "act2_up")  # the DPT heads' ConvTranspose scopes
+
+
+def dust3r_from_jax_params(params) -> dict:
+    """The JAX package's `Dust3rModel` parameter tree (numpy leaves, with or
+    without the `{"params": ...}` wrapper) -> a state dict for the port's
+    `models.dust3r.Dust3rModel`."""
+    return convert_tree(params, conv_transpose=DUST3R_CONV_TRANSPOSE)

@@ -162,3 +162,24 @@ def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(mod, Conv):
             mod.weight.data = mod.weight.data.contiguous(memory_format=torch.channels_last)
     return module
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights in every parameter of `module`, none zero:
+    weights of fan-in `f` ~ N(0, 1/f), biases ~ N(0, 0.02^2), norm scales
+    1 + N(0, 0.05^2) and norm biases N(0, 0.05^2), drawn from `generator` (on
+    the parameters' device) module by module in registration order."""
+    for mod in module.modules():
+        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32))
+        for pname, p in mod.named_parameters(recurse=False):
+            noise = torch.randn(p.shape, generator=generator, device=p.device)
+            if is_norm:
+                val = noise * 0.05 + (1.0 if pname == "weight" else 0.0)
+            elif p.ndim == 1:
+                val = noise * 0.02
+            else:
+                fan_in = p[0].numel() if pname == "weight" else p.shape[-1]
+                val = noise * fan_in ** -0.5
+            p.copy_(val)
+    return module

@@ -24,7 +24,7 @@ import torch
 
 from viewcrafter_tpu_torch.config import ModelConfig
 from viewcrafter_tpu_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder, clip_preprocess
-from viewcrafter_tpu_torch.models.layers import GroupNorm32, LayerNormF32, cast_weights
+from viewcrafter_tpu_torch.models.layers import cast_weights, init_random_
 from viewcrafter_tpu_torch.models.resampler import Resampler
 from viewcrafter_tpu_torch.models.unet3d import UNet3D
 from viewcrafter_tpu_torch.models.vae import AutoencoderKL
@@ -111,19 +111,7 @@ class VideoDiffusionEngine:
         so every branch of the network contributes."""
         g = torch.Generator(device=self.device).manual_seed(seed)
         for name in SUBMODELS:
-            module = getattr(self, name)
-            for mod in module.modules():
-                is_norm = isinstance(mod, (GroupNorm32, LayerNormF32))
-                for pname, p in mod.named_parameters(recurse=False):
-                    noise = torch.randn(p.shape, generator=g, device=self.device)
-                    if is_norm:
-                        val = noise * 0.05 + (1.0 if pname == "weight" else 0.0)
-                    elif p.ndim == 1:
-                        val = noise * 0.02
-                    else:
-                        fan_in = p[0].numel() if pname == "weight" else p.shape[-1]
-                        val = noise * fan_in ** -0.5
-                    p.copy_(val)
+            init_random_(getattr(self, name), g)
 
     @torch.no_grad()
     def load_params(self, state: dict) -> None:
