@@ -25,7 +25,10 @@ Phases, each printing JSON lines:
            gn_fused=True, 2 steps, with its own profile
   pab      that engine through `generate_staged` with attn_reuse_interval=3
            at the ds1 sites, 6 steps (two cells), cache stored as bf16 and as
-           f8: seconds per full and per reuse step, the cache's bytes
+           f8, then bf16 once more with sequential CFG (one UNet call per
+           branch, each branch with its own cache): seconds per full and per
+           reuse step, the cache's bytes, peak memory, the batched numbers
+           beside the sequential ones
   long     a 40-frame copy of `viewcrafter_25_512` (320x512), routes on,
            2 steps: both temporal attentions of every block run
            `temporal_attention_fused`
@@ -38,13 +41,33 @@ Phases, each printing JSON lines:
            both from the card's pointmaps
   pipeline `ViewCrafterPipeline.run()` (single_view_target) from a seeded
            numpy photo at dust3r_512 + viewcrafter_25, 300 alignment steps,
-           2 DDIM steps, seeded random weights: stage times (DUSt3R encode
-           and decode, the MST init, the Adam steps, the 25-view render, the
-           artifact writes, diffusion prepare / step / decode), peak memory,
-           an extrapolated 50-step seconds per video, the 72 fullkv launches of the geometry
-           stage (sites (2,576,576,16,64) x24 and (2,576,576,12,64) x48),
-           the four main-path kernels per UNet eval, the video's shape and
-           finiteness, the render's coverage and the files written
+           2 DDIM steps, seeded random weights; this phase and the three
+           below go through `run_mode`: a line per pass with the stage
+           times (DUSt3R encode and decode, the MST init, the Adam steps,
+           the render, the artifact writes, diffusion prepare / step /
+           decode), the geometry seconds, the pass's seconds extrapolated to
+           50 DDIM steps, the render's coverage per frame, the images, pairs
+           and fullkv launches (encoder, decoder) of each DUSt3R run; then a
+           line per phase with peak memory, the four main-path kernels per
+           UNet eval, the videos' shapes and finiteness and the files
+           written. Here one DUSt3R run of 2 images: fullkv 24/48, sites
+           (2,576,576,16,64) x24 and (2,576,576,12,64) x48
+  sparse_interp
+           sparse_view_interp at the same width, 2 DDIM steps per segment:
+           three seeded numpy views panned sideways (3 images, 6 directed
+           pairs, the cloud cleaned, 2 segments of 25 frames); fullkv 24
+           launches in the encoder and 48 in the decoder
+  iterative
+           single_view_nbv from the seeded photo: 3 passes of 2, 6 and 10
+           images (2, 30 and 90 pairs, the decoder in chunks of 8 pairs);
+           per pass the chosen candidate and fullkv's 24/48, 24/192 and
+           48/576 launches (encoder/decoder)
+  eval     single_view_eval on the first 6 frames of test/eval1 (6 seeded
+           numpy views without PIL): 30 pairs, then frame 0 duplicated
+           (fullkv 24/192, then 24/48). Its render must cover pixels in
+           frame 0, the identity camera where its two alignments meet; an
+           "eval_geometry" line says what the render sees from each camera
+           (`eval_geometry`)
   kernels  each kernel against its plain torch twin at every input shape any
            phase above launched it with (all eight kernels, all paths, the
            wiring runs included), the two attention kernels once more near
@@ -52,8 +75,9 @@ Phases, each printing JSON lines:
            one-hot (Wqkv scaled by 4): max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
-           function, or null), bound_ms (the DUSt3R sites of fullkv with SDPA
-           as library_ms, like every fullkv site); for the two attention kernels also
+           function, or null), bound_ms (the DUSt3R sites of fullkv, up to
+           batch 8, with SDPA as library_ms, like every fullkv site); for the
+           two attention kernels also
            mufu_bound_ms, their exponentials over the card's MUFU rate (16
            per SM per clock at the card's maximum SM clock); for the FF,
            temporal and spatial layers also gemm_library_ms, their two
@@ -64,8 +88,8 @@ Phases, each printing JSON lines:
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
 Then one {"kernels": [...]} line (the fullkv row also lists its DUSt3R sites
-under "dust3r_sites", with their launches per geometry pass), the nvidia-smi
-line, and last
+under "dust3r_sites", with the launches of each geometry pass that ran them),
+the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with no
 CUDA device, or outside the repository, it exits non-zero and prints no
 result.
@@ -86,7 +110,7 @@ PAB_STEPS, PAB_INTERVAL, PAB_SITES = 6, 3, ("down_0", "up_0", "init_attn")
 LONG_FRAMES = 40
 GEOMETRY_WIRING_STEPS = 10
 PIPELINE_NITER, PIPELINE_STEPS = 300, 2
-PIPELINE_GEOMETRY_FULLKV = 24 + 12 * 2 * 2  # encoder; decoder self + cross, two streams
+EVAL_FRAMES = 6  # frames of the eval phase's clip (test/eval1 has 25)
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
 # the near one-hot sites of the attention kernels (main-path ds2 sites, the
 # routes path's ds1 site)
@@ -423,15 +447,18 @@ def route_kwargs(routes: bool) -> dict:
     return {"cross_attn_impl": "auto", "gn_fused": True} if routes else {}
 
 
-def run_wiring(gen, routes: bool = False, frames: int = 8) -> tuple:
-    """`generate` with every kernel on the card against the plain path on the
-    CPU: same weights, same noise, same routes. The yardstick for the
-    tolerance is the CPU run's own bf16 distance from its float32 run.
-    Returns (result, launch sites)."""
+def run_wiring(gen, routes: bool = False, frames: int = 8, guidance=None, **staged) -> tuple:
+    """`generate_staged` (without `staged` arguments such as attention reuse,
+    the same as `generate`) with every kernel on the card against the plain
+    path on the CPU: same weights, same
+    noise, same routes, same `guidance` (default K = 2 batched). The
+    yardstick for the tolerance is the CPU run's own bf16 distance from its
+    float32 run. Returns (result, launch sites)."""
     import torch
 
     from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, VideoDiffusionEngine
     from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
     cfg = wiring_config(frames)
     kw = route_kwargs(routes)
@@ -447,19 +474,21 @@ def run_wiring(gen, routes: bool = False, frames: int = 8) -> tuple:
                           device="cuda") * 2 - 1
     ids, uids = fixed_prompt_ids(6, "cuda"), fixed_prompt_ids(0, "cuda")
     noise = cuda.draw_noise(frames_t.shape, 2, gen)
+    kw = dict(staged, steps=2, guidance=guidance or GuidanceConfig())
     kernels.reset_launches()
-    out = cuda.generate(frames_t, ids, uids, steps=2, noise=noise).cpu()
+    out = cuda.generate_staged(frames_t, ids, uids, noise=noise, **kw).cpu()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     cpu_noise = type(noise)(*(t.cpu() for t in (noise.x_T, noise.steps, noise.posterior)))
-    o32 = ref32.generate(frames_t.cpu(), ids.cpu(), uids.cpu(), steps=2, noise=cpu_noise)
-    o16 = ref16.generate(frames_t.cpu(), ids.cpu(), uids.cpu(), steps=2, noise=cpu_noise)
+    o32 = ref32.generate_staged(frames_t.cpu(), ids.cpu(), uids.cpu(), noise=cpu_noise, **kw)
+    o16 = ref16.generate_staged(frames_t.cpu(), ids.cpu(), uids.cpu(), noise=cpu_noise, **kw)
     # max and mean distance from the CPU float32 run, each held to twice the
     # CPU bf16 run's own distance (plus a floor)
     err, mean_err = (out - o32).abs().max().item(), (out - o32).abs().mean().item()
     yard, yard_mean = (o16 - o32).abs().max().item(), (o16 - o32).abs().mean().item()
     tol, mean_tol = 2 * yard + 1e-2, 2 * yard_mean + 1e-3
     res = {"phase": "wiring", "routes": routes, "frames": frames, "shape": list(out.shape),
+           "sequential_cfg": kw["guidance"].sequential, "staged": staged,
            "max_abs_err_vs_cpu_f32": err,
            "mean_abs_err_vs_cpu_f32": mean_err, "cpu_bf16_vs_f32": yard,
            "cpu_bf16_vs_f32_mean": yard_mean, "tol": tol, "mean_tol": mean_tol,
@@ -540,12 +569,12 @@ def profile_unet_eval(eng, frames, ids, uids, guidance, gen, what: str) -> dict:
 
 
 def drive(phase: str, cfg, gen, steps: int, routes: bool, profile_what=None, eng=None,
-          **staged):
+          guidance=None, **staged):
     """One path through the entry points a user calls: build the engine (or
     take `eng`), reset the launch counts, run `generate` (or, with `staged`
     arguments, `generate_staged`) for `steps` DDIM steps on seeded random
-    frames, read the counts, check the video. Returns (result, launch sites,
-    engine)."""
+    frames with `guidance` (default K = 2 batched), read the counts, check
+    the video. Returns (result, launch sites, engine)."""
     import torch
 
     from viewcrafter_tpu_torch.models.lvdm import VideoDiffusionEngine
@@ -562,7 +591,7 @@ def drive(phase: str, cfg, gen, steps: int, routes: bool, profile_what=None, eng
     frames = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
                         device="cuda") * 2 - 1
     ids, uids = fixed_prompt_ids(6, "cuda"), fixed_prompt_ids(0, "cuda")
-    guidance = GuidanceConfig()  # K = 2, scale 7.5, rescale 0.7
+    guidance = guidance or GuidanceConfig()  # K = 2, scale 7.5, rescale 0.7
     stamps = []
 
     def on_stage(name):
@@ -590,6 +619,7 @@ def drive(phase: str, cfg, gen, steps: int, routes: bool, profile_what=None, eng
     res = {
         "phase": phase, "config": cfg.name, "frames": list(frames.shape), "routes": routes,
         "steps": steps, "guidance_branches": guidance.num_branches,
+        "sequential_cfg": guidance.sequential,
         "setup_s": setup_s, "prepare_s": times[1] - times[0], "step_kinds": step_kinds,
         # the first step of a freshly built engine pays cuDNN's and the
         # allocator's warm-up: the figure is the median of the later steps
@@ -630,14 +660,15 @@ def require_launches(phase: str, res: dict, expect: dict) -> None:
                                  f"({n} in all), expected {expect[name]}")
 
 
-def cache_bytes(eng, gen, cache_dtype: str) -> dict:
+def cache_bytes(eng, gen, cache_dtype: str, guidance=None) -> dict:
     """Size of the attention cache one full PAB step of the `pab` phase
-    collects (sites and bytes), from a denoise_full call of its own."""
+    collects (sites and bytes), from a denoise_full call of its own; under
+    sequential CFG the K branches' caches together."""
     import torch
 
     from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
-    cfg, guidance = eng.cfg, GuidanceConfig()
+    cfg, guidance = eng.cfg, guidance or GuidanceConfig()
     f = cfg.vae.downsample_factor
     shape = (1, cfg.video_length, cfg.height // f, cfg.width // f, cfg.vae.z_channels)
     z_cond = torch.randn(shape, generator=gen, device="cuda")
@@ -646,7 +677,9 @@ def cache_bytes(eng, gen, cache_dtype: str) -> dict:
                                    cache_sites=PAB_SITES, cache_dtype=cache_dtype)
     with torch.no_grad():
         _, cache = d_full(z_cond.repeat(2, 1, 1, 1, 1), torch.full((2,), 999.0, device="cuda"))
-    return {"sites": len(cache), "gib": nbytes(*cache.values()) / 2 ** 30}
+    caches = cache if isinstance(cache, list) else [cache]
+    return {"sites": len(caches[0]), "caches": len(caches),
+            "gib": sum(nbytes(*c.values()) for c in caches) / 2 ** 30}
 
 
 def run_spatial_op(gen) -> tuple:
@@ -793,15 +826,58 @@ def pipeline_input(seed: int, h: int, w: int):
     return LoadedImage(img=small.astype(np.float32), img_ori=img_ori, index=0)
 
 
-def run_pipeline() -> tuple:
-    """`ViewCrafterPipeline.run()` in single_view_target at dust3r_512 +
-    viewcrafter_25, PIPELINE_NITER alignment steps and PIPELINE_STEPS DDIM
-    steps, seeded random weights, from a seeded numpy photo: stage times,
-    peak memory, the fullkv launches of the geometry stage (encoder 24 +
-    decoder 48 for the duplicated photo's one pair of images and two
-    directed pairs), the four main-path kernels per UNet eval, the video's
-    shape and finiteness and the render's coverage. Returns (result, launch
-    sites)."""
+def shifted_views(n: int, shift: int, h: int, w: int) -> list:
+    """`n` views of one seeded numpy photo (`pipeline_input`), the i-th
+    panned `i * shift` pixels sideways at the diffusion resolution."""
+    import numpy as np
+
+    from viewcrafter_tpu_torch.utils.io import LoadedImage
+
+    base = pipeline_input(0, h, w).img_ori
+    views = []
+    for i in range(n):
+        ori = np.ascontiguousarray(np.roll(base, i * shift, axis=1))
+        small = ori.reshape(h // 2, 2, w // 2, 2, 3).mean(axis=(1, 3)).astype(np.float32)
+        views.append(LoadedImage(img=small, img_ori=ori, index=i))
+    return views
+
+
+def eval_clip(n: int, h: int, w: int):
+    """The first `n` frames of test/eval1 through the pipeline's loader, or,
+    without PIL, `n` seeded numpy views. Returns (views, source)."""
+    from viewcrafter_tpu_torch.utils import io as vio
+
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return shifted_views(n, 24, h, w), f"{n} seeded numpy views (no PIL)"
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test", "eval1")
+    paths = [os.path.join(folder, f) for f in sorted(os.listdir(folder))][:n]
+    return vio.load_images(paths, size=512, target_hw=(h, w)), f"test/eval1 frames 0-{n - 1}"
+
+
+def run_mode(phase: str, mode: str, images: list, fullkv_per_dust3r: list, frames: int,
+             cuts: list, covered: slice, **opt_kw) -> tuple:
+    """`ViewCrafterPipeline.run()` in `mode` at dust3r_512 + viewcrafter_25,
+    PIPELINE_NITER alignment steps, PIPELINE_STEPS DDIM steps per diffusion
+    call, seeded random weights, default routes. One line per pass (a pass
+    ends with its diffusion video: one per iteration of the iterative modes,
+    one in all for the others): each stage's seconds (repeated stages
+    summed), the geometry seconds (DUSt3R and the alignment), the MST init
+    and the Adam steps of each DUSt3R run apart, the writes apart, the
+    images, pairs and aligner edges of each DUSt3R run and its fullkv
+    launches (encoder, decoder), the chosen NBV candidate, the share of
+    pixels the render covers in each frame (at DUSt3R's size, before the
+    input photo replaces frame 0), and the pass's seconds extrapolated to 50
+    DDIM steps per diffusion call at its median step (with and without the
+    writes; an extrapolation, not a 50-step run). Fails unless each DUSt3R
+    run launched fullkv as `fullkv_per_dust3r` says, every UNet eval
+    launched the four main-path kernels as the main path does, the videos
+    are finite with `frames` frames at 576x1024, and every pass's render
+    covers some pixels in the frames `covered` selects. In single_view_eval
+    a line says what its render sees (`eval_geometry`). Returns (result,
+    launch sites, [(pass, DUSt3R fullkv sites)])."""
+    import re
     import tempfile
 
     import numpy as np
@@ -810,7 +886,7 @@ def run_pipeline() -> tuple:
     from viewcrafter_tpu_torch.ops import kernels
     from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
 
-    stamps = []
+    stamps, dust3r_images, scenes, renders = [], [], [], []
 
     def on_stage(name):
         torch.cuda.synchronize()
@@ -818,70 +894,183 @@ def run_pipeline() -> tuple:
                        kernels.launch_sites()))
 
     with tempfile.TemporaryDirectory() as out_dir:
-        opts = InferenceOptions(mode="single_view_target", model="viewcrafter_25",
-                                dust3r_model="dust3r_512", niter=PIPELINE_NITER,
-                                ddim_steps=PIPELINE_STEPS, out_dir=out_dir, exp_name="smoke",
-                                ckpt_path=None, model_path=None)
+        opts = InferenceOptions(mode=mode, model="viewcrafter_25", dust3r_model="dust3r_512",
+                                niter=PIPELINE_NITER, ddim_steps=PIPELINE_STEPS,
+                                out_dir=out_dir, exp_name=phase, ckpt_path=None,
+                                model_path=None, **opt_kw)
         t0 = time.perf_counter()
         pipe = ViewCrafterPipeline(opts, on_stage=on_stage)  # device=None: the card
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        image = pipeline_input(0, pipe.model_cfg.height, pipe.model_cfg.width)
+        align, render = pipe.run_dust3r, pipe.run_render
+
+        def run_dust3r(imgs, clean_pc=False):  # keeps each DUSt3R run's images and scene
+            dust3r_images.append(len(imgs))
+            scenes.append(align(imgs, clean_pc))
+            return scenes[-1]
+
+        def run_render(*args, **kw):  # the last render of a pass is its trajectory
+            out = render(*args, **kw)
+            renders.append((args, (out[0] > 0).any(-1).mean(axis=(1, 2)).tolist()))
+            return out
+
+        pipe.run_dust3r, pipe.run_render = run_dust3r, run_render
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        t_start = time.perf_counter()
-        video = pipe.run(images=[image])
+        on_stage("start")
+        out = pipe.run(images=images)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         written = sorted(os.listdir(opts.save_dir))
     counts, sites = kernels.launch_counts(), kernels.launch_sites()
-    names = [st[0] for st in stamps]
-    times = dict(zip(names, np.diff([t_start] + [st[1] for st in stamps])))
-    step_s = [st[1] - prev[1] for st, prev in zip(stamps[1:], stamps) if st[0] == "step"]
-    at_align = stamps[names.index("align")]
-    geometry = at_align[2]["fullkv_attention"]
-    first_step = names.index("prepare")
-    last_step = len(names) - 1 - names[::-1].index("step")
-    per_eval = {k: (stamps[last_step][2][k] - stamps[first_step][2][k]) / PIPELINE_STEPS
-                for k in counts}
-    frames = pipe.guidance_frames
-    s_per_step = statistics.median(step_s[1:] or step_s)
-    geometry_s = sum(times[n] for n in ("dust3r_encode", "dust3r_decode", "align_init", "align"))
+    videos = out if isinstance(out, list) else [out]
+
+    passes, cur = [], []
+    for prev, st in zip(stamps, stamps[1:]):
+        cur.append((st[0], st[1] - prev[1], prev, st))
+        if st[0] == "write_video":
+            passes.append(cur)
+            cur = []
+    runs = iter(dust3r_images)
+    steps = {"n": 0, "counts": {k: 0 for k in counts}}
+    pass_res, pass_sites, coverage, n_render = [], [], [], 0
+    for k, stages in enumerate(passes):
+        stage_s, fullkv, geo_sites, step_s, mst_s, adam_s = {}, [], {}, [], [], []
+        for name, dt, prev, st in stages:
+            stage_s[name] = stage_s.get(name, 0.0) + dt
+            if name == "align_init":
+                mst_s.append(dt)
+            if name == "align":
+                adam_s.append(dt)
+            n_render += name == "render"
+            if name == "dust3r_encode":
+                enc = st[2]["fullkv_attention"] - prev[2]["fullkv_attention"]
+                start = prev
+            if name == "dust3r_decode":
+                fullkv.append([enc, st[2]["fullkv_attention"] - start[2]["fullkv_attention"] - enc])
+                for site, n in st[3]["fullkv_attention"].items():
+                    n -= start[3]["fullkv_attention"].get(site, 0)
+                    if n:
+                        geo_sites[site] = geo_sites.get(site, 0) + n
+            if name == "step":
+                step_s.append(dt)
+                steps["n"] += 1
+                for kk in counts:
+                    steps["counts"][kk] += st[2][kk] - prev[2][kk]
+        n_img = [next(runs) for _ in fullkv]
+        pick = [m.group(1) for m in (re.match(rf"candidate_mask{k}_nbv(\d+)", f) for f in written)
+                if m]
+        pass_s = stages[-1][3][1] - stages[0][2][1]
+        s_per_step = statistics.median(step_s[1:] or step_s)
+        calls = sum(name == "prepare" for name, *_ in stages)
+        # the pass's last render (nbv renders its candidates first)
+        frame_cov = renders[n_render - 1][1]
+        coverage.append(frame_cov)
+        res = {"phase": f"{phase}_pass", "mode": mode, "pass": k, "images": n_img,
+               "pairs": [n * (n - 1) for n in n_img], "aligner_edges": [n * (n - 1) for n in n_img],
+               "fullkv_encoder_decoder": fullkv, "mst_s": mst_s, "adam_s": adam_s,
+               "stage_s": stage_s, "step_s": step_s,
+               "geometry_s": sum(stage_s.get(n, 0.0) for n in (
+                   "dust3r_encode", "dust3r_decode", "align_init", "align")),
+               "writes_s": {n: stage_s.get(n) for n in ("write_render", "write_video")},
+               "s_per_step": s_per_step, "pass_s": pass_s,
+               "extrapolated_s_50_steps": pass_s - sum(step_s) + 50 * calls * s_per_step,
+               "extrapolated_s_50_steps_no_writes": (
+                   pass_s - sum(step_s) + 50 * calls * s_per_step
+                   - stage_s.get("write_render", 0.0) - stage_s.get("write_video", 0.0)),
+               "render_coverage_per_frame": frame_cov,
+               "nbv_candidate": int(pick[0]) if pick else None}
+        emit(res)
+        pass_res.append(res)
+        pass_sites.append((k, geo_sites))
+    per_eval = {kk: v / steps["n"] for kk, v in steps["counts"].items()}
     res = {
-        "phase": "pipeline", "mode": opts.mode, "dust3r": opts.dust3r_model, "model": opts.model,
-        "niter": PIPELINE_NITER, "ddim_steps": PIPELINE_STEPS, "setup_s": setup_s,
-        "stage_s": {n: times[n] for n in ("dust3r_encode", "dust3r_decode", "align_init",
-                                          "align", "render", "write_render", "prepare",
-                                          "decode", "write_video")},
-        "step_s": step_s, "s_per_step": s_per_step, "total_s": t_end - t_start,
+        "phase": phase, "mode": mode, "dust3r": opts.dust3r_model, "model": opts.model,
+        "niter": PIPELINE_NITER, "ddim_steps_per_call": PIPELINE_STEPS, "cuts": cuts,
+        "setup_s": setup_s, "total_s": t_end - stamps[0][1], "passes": len(passes),
+        "diffusion_calls": sum(st[0] == "prepare" for st in stamps),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        # 50 DDIM steps at this run's median step: an extrapolation, not a
-        # measurement of a 50-step run; with and without the file writing
-        "extrapolated_s_per_video_50_steps": (
-            t_end - t_start - sum(step_s) + 50 * s_per_step),
-        "extrapolated_s_per_video_50_steps_no_writes": (
-            t_end - t_start - sum(step_s) + 50 * s_per_step - times["write_render"]
-            - times["write_video"]),
-        "geometry_s": geometry_s, "fullkv_launches_geometry": geometry,
+        "geometry_s": sum(p["geometry_s"] for p in pass_res),
+        "extrapolated_s_50_steps": sum(p["extrapolated_s_50_steps"] for p in pass_res),
+        "extrapolated_s_50_steps_no_writes": sum(
+            p["extrapolated_s_50_steps_no_writes"] for p in pass_res),
         "launches": counts, "launches_per_unet_eval": per_eval,
-        "output_shape": list(video.shape), "finite": bool(np.isfinite(video).all()),
-        "output_abs_mean": float(np.abs(video).mean()),
-        "render_coverage": float((frames[1:] > 0).any(-1).mean()),
-        "scene_focal": float(pipe.scene.focals[-1]), "written": written,
-        "fullkv_sites_geometry": [[list(k), n] for k, n in at_align[3]["fullkv_attention"].items()],
+        "fullkv_encoder_decoder": [r for p in pass_res for r in p["fullkv_encoder_decoder"]],
+        "output_shapes": [list(v.shape) for v in videos],
+        "finite": all(bool(np.isfinite(v).all()) for v in videos),
+        "output_abs_mean": float(np.mean([np.abs(v).mean() for v in videos])),
+        "render_coverage": [float(np.mean(c[covered])) for c in coverage],
+        "render_coverage_frames": str(covered), "written": written,
     }
     emit(res)
-    expect = [25, 576, 1024, 3]
-    if res["output_shape"] != expect or not res["finite"] or res["render_coverage"] <= 0:
-        raise AssertionError(f"pipeline: {res}")
-    if geometry != PIPELINE_GEOMETRY_FULLKV:
-        raise AssertionError(f"pipeline: fullkv launched {geometry} times in the geometry "
-                             f"stage, expected {PIPELINE_GEOMETRY_FULLKV}")
-    require_launches("pipeline", res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
-                                       "fused_ff_layer": 33, "temporal_conv3": 88})
+    if mode == "single_view_eval":
+        emit({"phase": f"{phase}_geometry", **eval_geometry(scenes, renders[-1][0])})
+    if not res["finite"] or any(v.shape != (frames, 576, 1024, 3) for v in videos) or (
+            min(res["render_coverage"]) <= 0):
+        raise AssertionError(f"{phase}: {res}")
+    if res["fullkv_encoder_decoder"] != [list(x) for x in fullkv_per_dust3r]:
+        raise AssertionError(f"{phase}: fullkv (encoder, decoder) launches per DUSt3R run "
+                             f"{res['fullkv_encoder_decoder']}, expected {fullkv_per_dust3r}")
+    require_launches(phase, res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
+                                  "fused_ff_layer": 33, "temporal_conv3": 88})
     del pipe
     torch.cuda.empty_cache()
-    return res, sites, at_align[3]
+    return res, sites, pass_sites
+
+
+def eval_geometry(scenes: list, render_args: tuple) -> dict:
+    """What the eval phase's render sees: single_view_eval draws the cloud
+    of an alignment of its own ([img0, img0], the last scene) along the
+    cameras of the clip's alignment (the first scene), re-anchored so that
+    camera 0 is the identity; that holds only if the two alignments share
+    camera 0's frame and their scale. Reports the cloud's coverage at its
+    own camera 0 (its own pose, focal and principal point), how far its
+    camera 0 lies from the identity, both scenes' median depths (their
+    scales), the share of its depths at or below the rasterizer's znear
+    (1e-4; such points are not drawn), the focals, each render camera's distance
+    and rotation from camera 0, and per render camera the share of the
+    cloud's points in front of it and inside its image."""
+    import numpy as np
+    import torch
+
+    from viewcrafter_tpu_torch.geometry.transforms import inv_se3, make_intrinsics
+    from viewcrafter_tpu_torch.ops.rasterize import render_trajectory
+
+    clip, ref = scenes[0], scenes[-1]
+    pts, _, c2ws, focals, pps, (h, w) = render_args
+
+    def angle_deg(r):
+        return float(np.degrees(np.arccos(np.clip((np.trace(r[:3, :3]) - 1) / 2, -1, 1))))
+
+    own = render_trajectory(
+        torch.as_tensor(pts, dtype=torch.float32, device="cuda"),
+        torch.ones((len(pts), 1), device="cuda"),
+        inv_se3(torch.as_tensor(ref.poses[:1], dtype=torch.float32, device="cuda")),
+        torch.as_tensor(make_intrinsics(ref.focals[:1], ref.principal_points[:1]),
+                        device="cuda"), h, w)
+    in_front, in_view = [], []
+    for c2w in np.asarray(c2ws, np.float64):
+        w2c = np.linalg.inv(c2w)
+        cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        front = cam[:, 2] > 1e-4
+        z = np.where(front, cam[:, 2], 1.0)
+        u = focals[0] * cam[:, 0] / z + pps[0][0]
+        v = focals[0] * cam[:, 1] / z + pps[0][1]
+        in_front.append(float(front.mean()))
+        in_view.append(float((front & (u > -0.5) & (u < w - 0.5) & (v > -0.5)
+                              & (v < h - 0.5)).mean()))
+    return {
+        "ref_cloud_coverage_at_own_camera0": float((own[0, ..., 0] > 0).float().mean()),
+        "ref_camera0_distance": float(np.linalg.norm(ref.poses[0][:3, 3])),
+        "ref_camera0_rotation_deg": angle_deg(ref.poses[0]),
+        "ref_depth_median": float(np.median(ref.depths[0])),
+        "ref_depth_share_below_znear": float((ref.depths[0] <= 1e-4).mean()),
+        "clip_depth0_median": float(np.median(clip.depths[0])),
+        "ref_focal": float(ref.focals[0]), "clip_focal": float(focals[0]),
+        "camera_distance": [float(np.linalg.norm(c[:3, 3])) for c in c2ws],
+        "camera_rotation_deg": [angle_deg(c) for c in c2ws],
+        "ref_points_in_front": in_front, "ref_points_in_view": in_view,
+    }
 
 
 def wgmma_kernel_resources(log: str) -> list:
@@ -934,6 +1123,7 @@ def main() -> int:
         from viewcrafter_tpu_torch.config import get_model_config
         from viewcrafter_tpu_torch.ops import kernels
         from viewcrafter_tpu_torch.ops.kernels import _lib
+        from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
@@ -996,22 +1186,34 @@ def main() -> int:
           "main_peak_mem_gib": main_res["peak_mem_gib"],
           "routes_peak_mem_gib": routes_res["peak_mem_gib"]})
 
-    pab_sites = []
-    for cache_dtype in ("bf16", "f8"):
+    # PAB reuse with the K = 2 branches batched (bf16 and f8 cache), then with
+    # sequential CFG (one UNet call per branch, each with its own cache)
+    pab_sites, pab_batched = [], {}
+    for cache_dtype, sequential in (("bf16", False), ("f8", False), ("bf16", True)):
+        guidance = GuidanceConfig(sequential=sequential)
+        phase = f"pab_{cache_dtype}" + ("_sequential" if sequential else "")
         pab_res, sites, _ = drive(
-            f"pab_{cache_dtype}", flagship, gen, PAB_STEPS, routes=True, eng=eng,
+            phase, flagship, gen, PAB_STEPS, routes=True, eng=eng, guidance=guidance,
             attn_reuse_interval=PAB_INTERVAL, attn_reuse_sites=PAB_SITES,
             attn_reuse_dtype=cache_dtype)
         pab_sites.append(sites)
         if pab_res["step_kinds"] != ["full", "reuse", "reuse"] * (PAB_STEPS // PAB_INTERVAL):
-            raise AssertionError(f"pab: step kinds {pab_res['step_kinds']}")
+            raise AssertionError(f"{phase}: step kinds {pab_res['step_kinds']}")
         for k in ("group_norm_fused", "dual_cross_attention", "fullkv_attention"):
             if pab_res["launches"][k] == 0:
-                raise AssertionError(f"pab: {k} never launched")
-        emit({"phase": "pab_cache", "dtype": cache_dtype, **cache_bytes(eng, gen, cache_dtype),
-              "s_per_full_step": pab_res["s_per_full_step"],
-              "s_per_reuse_step": pab_res["s_per_reuse_step"],
-              "routes_s_per_step": routes_res["s_per_step"]})
+                raise AssertionError(f"{phase}: {k} never launched")
+        line = {"phase": "pab_cache", "dtype": cache_dtype, "sequential_cfg": sequential,
+                **cache_bytes(eng, gen, cache_dtype, guidance),
+                "s_per_full_step": pab_res["s_per_full_step"],
+                "s_per_reuse_step": pab_res["s_per_reuse_step"],
+                "peak_mem_gib": pab_res["peak_mem_gib"],
+                "routes_s_per_step": routes_res["s_per_step"]}
+        if sequential:  # the batched run's numbers beside
+            line["batched"] = pab_batched[cache_dtype]
+        else:
+            pab_batched[cache_dtype] = {k: line[k] for k in (
+                "gib", "s_per_full_step", "s_per_reuse_step", "peak_mem_gib")}
+        emit(line)
     del eng
     torch.cuda.empty_cache()
 
@@ -1027,14 +1229,33 @@ def main() -> int:
     op_res, op_sites = run_spatial_op(gen)
 
     _, geo_wiring_sites = run_geometry_wiring(gen)
-    _, pipe_sites, dust3r_sites = run_pipeline()
+    # the photo-to-video path, then the other modes: their DUSt3R passes
+    # launch fullkv at batch sizes of up to 8 images and 8 pairs
+    h, w = flagship.height, flagship.width
+    clip, clip_source = eval_clip(EVAL_FRAMES, h, w)
+    mode_sites, dust3r_passes = [], []
+    steps_cut = f"DDIM steps {PIPELINE_STEPS} of 50"
+    for phase, mode, images, fullkv, frames, cuts, covered in (
+            ("pipeline", "single_view_target", [pipeline_input(0, h, w)], [(24, 48)], 25,
+             [steps_cut], slice(1, None)),
+            ("sparse_interp", "sparse_view_interp", shifted_views(3, 24, h, w), [(24, 48)], 50,
+             [f"{steps_cut} per segment"], slice(1, None)),
+            ("iterative", "single_view_nbv", [pipeline_input(0, h, w)],
+             [(24, 48), (24, 192), (48, 576)], 25, [f"{steps_cut} per pass"], slice(1, None)),
+            # the eval render's frame 0 is the cloud at the identity camera,
+            # where the two alignments meet (see eval_geometry)
+            ("eval", "single_view_eval", clip, [(24, 192), (24, 48)], EVAL_FRAMES,
+             [steps_cut, f"{EVAL_FRAMES} frames of the clip ({clip_source})"], slice(0, 1))):
+        _, sites_, passes = run_mode(phase, mode, images, fullkv, frames, cuts, covered)
+        mode_sites.append(sites_)
+        dust3r_passes += [(phase, k, geo) for k, geo in passes]
 
     # every kernel is held against its twin at every shape any driven path
     # launched it with (the wiring runs included); GroupNorm also at one
     # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
     # path's launch count a kernel's row reports.
-    sites = merge_sites(*wiring_sites, geo_wiring_sites, pipe_sites, *(s["all"] for s in (
-        main_sites, routes_sites, *pab_sites, long_sites, op_sites)))
+    sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, *(
+        s["all"] for s in (main_sites, routes_sites, *pab_sites, long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 4, 1)] = 0
     emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})
     path_res = {"main": main_res, "routes": routes_res, "long": long_res, "op": op_res}
@@ -1070,14 +1291,16 @@ def main() -> int:
         })
         if rows[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was never launched on the {path} path")
-    # fullkv's DUSt3R sites: launches per geometry pass beside the times
+    # fullkv's DUSt3R sites: the launches of each geometry pass beside the times
     fullkv_row = next(r for r in rows if r["name"] == "fullkv_attention")
     fullkv_row["dust3r_sites"] = [
-        {"site": r["site"], "launches_per_geometry_pass": dust3r_sites["fullkv_attention"][
-            tuple(r["site"])], **{k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                    "bound_ms", "bound_by", "mufu_bound_ms")}}
+        {"site": r["site"], "launches_per_geometry_pass": [
+            [phase, k, geo[tuple(r["site"])]] for phase, k, geo in dust3r_passes
+            if tuple(r["site"]) in geo],
+         **{k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                              "mufu_bound_ms")}}
         for r in results["fullkv_attention"]
-        if not r["variant"] and tuple(r["site"]) in dust3r_sites["fullkv_attention"]]
+        if not r["variant"] and any(tuple(r["site"]) in geo for _, _, geo in dust3r_passes)]
     emit({"kernels": rows})
     emit({"phase": "end", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

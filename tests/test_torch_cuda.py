@@ -276,3 +276,116 @@ def test_render_trajectory_on_the_card_matches_cpu(gen, z_order):
     close = ((got - ref).abs() <= 1e-5).all(-1).float().mean().item()
     assert (ref > 0).any(-1).float().mean().item() > 0.5
     assert close >= 0.999, close
+
+
+def test_resize_downsample_on_the_card_matches_cpu(gen):
+    """The antialiased downsample of the iterative modes (a generated frame
+    to DUSt3R's size, and a shrink of one axis with a growth of the other)
+    on the card against the CPU."""
+    from viewcrafter_tpu_torch.ops.resize import resize_bilinear
+
+    for shape, out in (((1, 576, 1024, 3), (288, 512)), ((2, 40, 96, 3), (64, 20))):
+        x = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+        got = resize_bilinear(x, *out).cpu()
+        ref = resize_bilinear(x.cpu(), *out)
+        assert got.shape == ref.shape and (got - ref).abs().max().item() <= 1e-5
+
+
+def test_sequential_cfg_with_attention_reuse_matches_cpu(gen):
+    """Sequential CFG under the attention cache (one UNet call per branch,
+    each with its own cache: one full and one reuse step) on a small config
+    whose every gate takes the kernels, card against CPU."""
+    from chip_smoke import MAIN_KERNELS, run_wiring
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+
+    for guidance in (GuidanceConfig(sequential=True), GuidanceConfig(cfg_img=1.5, sequential=True)):
+        res, _ = run_wiring(gen, guidance=guidance, attn_reuse_interval=2)
+        assert all(res["launches"][k] > 0 for k in MAIN_KERNELS)
+
+
+def test_sparse_view_interp_on_the_card_matches_cpu(gen, tmp_path):
+    """`ViewCrafterPipeline.run()` in sparse_view_interp on the tiny presets,
+    bf16 on the card (the kernel wrappers take bf16 only) against float32 and
+    bf16 on the CPU, each stage from common inputs as in
+    `tests/test_torch_modes.py`: the CPU's DUSt3R pass continues from the
+    card's scene and its diffusion calls run on the card's guidance frames
+    with the card's draws. The yardstick is the CPU bf16 run's own distance
+    from its float32 run (as chip_smoke.py's wiring phase): the scene within
+    twice that plus 2e-2 (relative), each segment's video within twice that
+    plus 1e-2 at most and 1e-3 on average; 99% of the guidance pixels within
+    2e-2 (the render is float32 on both)."""
+    import numpy as np
+
+    from chip_smoke import shifted_views
+    from viewcrafter_tpu_torch.models.lvdm import SUBMODELS
+    from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
+
+    def pipeline(device, dtype):
+        opts = InferenceOptions(mode="sparse_view_interp", model="viewcrafter_tiny",
+                                dust3r_model="dust3r_tiny", ddim_steps=2, video_length=7,
+                                dust3r_size=64, niter=5, batch_size=2,
+                                out_dir=str(tmp_path / f"{device}_{dtype}"), exp_name="s")
+        return ViewCrafterPipeline(opts, device=device, dtype=dtype)
+
+    views = shifted_views(3, 4, 32, 64)
+    card = pipeline("cuda", torch.bfloat16)
+    rec = {"scenes": [], "frames": [], "noise": [], "videos": []}
+    align, diffuse = card.run_dust3r, card.run_diffusion
+
+    def card_dust3r(images, clean_pc=False):
+        rec["scenes"].append(align(images, clean_pc))
+        return rec["scenes"][-1]
+
+    def card_diffusion(frames01, cond_idx=0, noise=None):
+        noise = card.engine.draw_noise((1,) + frames01.shape, 2, card.generator)
+        rec["frames"].append(frames01)
+        rec["noise"].append(type(noise)(*(t.cpu() for t in (noise.x_T, noise.steps,
+                                                             noise.posterior))))
+        rec["videos"].append(diffuse(frames01, cond_idx, noise))
+        return rec["videos"][-1]
+
+    card.run_dust3r, card.run_diffusion = card_dust3r, card_diffusion
+    card.run(images=views)
+
+    def follow(dtype):
+        """A CPU pipeline with the card's weights, continuing from the card's
+        stages; returns its own scenes, frames and videos."""
+        cpu = pipeline("cpu", dtype)
+        cpu.load_params({k: v.cpu() for k, v in card.dust3r.state_dict().items()},
+                        {n: {k: v.cpu() for k, v in getattr(card.engine, n).state_dict().items()}
+                         for n in SUBMODELS})
+        own = {"scenes": [], "frames": [], "videos": []}
+        c_align, c_diffuse = cpu.run_dust3r, cpu.run_diffusion
+        scenes, frames, noise, videos = (iter(rec[k]) for k in ("scenes", "frames", "noise",
+                                                                   "videos"))
+
+        def cpu_dust3r(images, clean_pc=False):
+            own["scenes"].append(c_align(images, clean_pc))
+            cpu.scene = next(scenes)
+            return cpu.scene
+
+        def cpu_diffusion(frames01, cond_idx=0, _noise=None):
+            own["frames"].append(frames01)
+            own["videos"].append(c_diffuse(next(frames), cond_idx, next(noise)))
+            return next(videos)
+
+        cpu.run_dust3r, cpu.run_diffusion = cpu_dust3r, cpu_diffusion
+        cpu.run(images=views)
+        return own
+
+    f32, bf16 = follow(torch.float32), follow(torch.bfloat16)
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a, np.float64) - b).max() / np.abs(b).max())
+
+    assert len(f32["videos"]) == len(rec["videos"]) == 2
+    for cs, s32, s16 in zip(rec["scenes"], f32["scenes"], bf16["scenes"]):
+        for name in ("depths", "poses", "focals"):
+            a, b, c = (getattr(x, name) for x in (cs, s32, s16))
+            assert rel(a, b) <= 2 * rel(c, b) + 2e-2, name
+    for cf, tf in zip(rec["frames"], f32["frames"]):
+        assert np.all(np.abs(tf - cf) <= 2e-2, axis=-1).mean() >= 0.99
+    for cv, v32, v16 in zip(rec["videos"], f32["videos"], bf16["videos"]):
+        err, yard = np.abs(cv - v32), np.abs(v16 - v32)
+        assert np.isfinite(cv).all()
+        assert err.max() <= 2 * yard.max() + 1e-2 and err.mean() <= 2 * yard.mean() + 1e-3

@@ -7,7 +7,9 @@ run it (VIEWCRAFTER_ATTN_IMPL=xla, tests/conftest.py), so both sides take
 the plain attention on the CPU.
 
 Tolerances:
-  - rope2d and both resizes: 1e-6 (the same float32 arithmetic).
+  - rope2d and both resizes: 1e-6 (the same float32 arithmetic); the
+    antialiased downsample 1e-4 (torch's and XLA's kernel weights summed in
+    another order).
   - the network in float32 on both sides (dust3r_tiny, 48x64 input so the
     DPT head crops an odd grid): 1e-4 of the largest magnitude of each
     output (float32 sums in another order, amplified by expm1).
@@ -82,9 +84,39 @@ def test_resize_bilinear_upsample_matches_jax_image_resize(shape, out):
     assert _rel(got.numpy(), ref) <= 1e-6
 
 
-def test_resize_bilinear_refuses_a_downsample():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        resize_bilinear(torch.zeros(1, 8, 8, 3), 4, 4)
+@pytest.mark.parametrize("shape,out", [((1, 576, 1024, 3), (288, 512)),
+                                       ((2, 96, 128, 3), (40, 56)),
+                                       ((1, 576, 1024, 3), (320, 512)),
+                                       ((1, 8, 20, 3), (16, 7)),
+                                       ((1, 8, 8, 3), (4, 4))])
+def test_resize_bilinear_downsample_matches_jax_image_resize(shape, out):
+    """The antialiased downsample (the fourth case shrinks one axis and
+    grows the other) against jax.image.resize: within 1e-4. It is not the
+    aliased bilinear sampling that torch's F.interpolate does by default
+    (two source pixels per output pixel, whatever the scale): it widens the
+    kernel by the scale, as jax.image.resize does."""
+    x = np.random.default_rng(5).uniform(-1, 1, shape).astype(np.float32)
+    ref = jax_resize(jnp.asarray(x), *out)
+    got = resize_bilinear(torch.from_numpy(x), *out)
+    assert got.shape == ref.shape
+    assert _rel(got.numpy(), ref) <= 1e-4
+    aliased = torch.nn.functional.interpolate(
+        torch.from_numpy(x).permute(0, 3, 1, 2), size=out, mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1)
+    assert _rel(got.numpy(), aliased.numpy()) > 1e-2
+
+
+def test_resize_to_dust3r_matches_jax():
+    """A generated frame in [-1, 1] taken down to DUSt3R's size, as the
+    iterative modes do: against the JAX package's `resize_to_dust3r`."""
+    from viewcrafter_tpu.utils.io import resize_to_dust3r as jax_resize_to_dust3r
+    from viewcrafter_tpu_torch.utils.io import resize_to_dust3r
+
+    frame = np.random.default_rng(6).uniform(-1, 1, (576, 1024, 3)).astype(np.float32)
+    got = resize_to_dust3r(frame, hw=(288, 512), device="cpu")
+    ref = jax_resize_to_dust3r(frame, hw=(288, 512))
+    assert isinstance(got, np.ndarray) and got.shape == ref.shape == (288, 512, 3)
+    assert _rel(got, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("cin,cout,k", [(8, 8, 4), (6, 10, 4), (8, 8, 2), (12, 5, 2)])

@@ -13,6 +13,7 @@ import viewcrafter_tpu_torch
 import viewcrafter_tpu_torch.align.global_align
 import viewcrafter_tpu_torch.align.pairs
 import viewcrafter_tpu_torch.align.rotations
+import viewcrafter_tpu_torch.app
 import viewcrafter_tpu_torch.cli
 import viewcrafter_tpu_torch.convert
 import viewcrafter_tpu_torch.geometry.trajectory
@@ -25,6 +26,7 @@ import viewcrafter_tpu_torch.ops.resize
 import viewcrafter_tpu_torch.ops.rope2d
 import viewcrafter_tpu_torch.pipeline
 import viewcrafter_tpu_torch.utils.io
+import viewcrafter_tpu_torch.utils.metrics
 import viewcrafter_tpu_torch.utils.viz
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "viewcrafter_tpu"))

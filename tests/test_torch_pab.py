@@ -1,6 +1,7 @@
 """PAB attention reuse in the port against the JAX package, on the CPU:
 `AttnCacheCtx` through `UNet3D.forward`, the windowed samplers, and
-`generate_staged` with reuse intervals 1 and 3 on `viewcrafter_tiny`.
+`generate_staged` with reuse intervals 1 and 3 on `viewcrafter_tiny`, batched
+and with sequential CFG (K = 3).
 
 The JAX engine draws its noise with jax.random; `torch_parity.jax_noise`
 rebuilds those draws (prepare splits the key as `generate` does, each window
@@ -204,17 +205,19 @@ def test_pab_cells_in_one_window_equal_one_window_per_cell():
 # -- generate_staged ------------------------------------------------------------
 
 
-def _staged_pair(setup, steps, **kw):
+def _staged_pair(setup, steps, guidance=None, **kw):
+    """`generate_staged` of both packages on the same inputs and draws;
+    guidance: GuidanceConfig's arguments (default K = 2, batched)."""
     params, jeng, teng, cfg, _, frames, ids, uids = setup
     key = jax.random.PRNGKey(11)
     ref = jeng.generate_staged(params, jnp.asarray(frames), jnp.asarray(ids), jnp.asarray(uids),
-                               key, steps=steps, guidance=JaxGuidance(), **kw)
+                               key, steps=steps, guidance=JaxGuidance(**(guidance or {})), **kw)
     noise = tp.jax_noise(key, frames.shape, steps, cfg.vae.z_channels, cfg.vae.downsample_factor)
     stages = []
     got = teng.generate_staged(torch.from_numpy(frames), torch.from_numpy(ids).long(),
                                torch.from_numpy(uids).long(), steps=steps,
-                               guidance=GuidanceConfig(), noise=noise, on_stage=stages.append,
-                               **kw)
+                               guidance=GuidanceConfig(**(guidance or {})), noise=noise,
+                               on_stage=stages.append, **kw)
     return np.asarray(ref, np.float32), got.numpy(), stages, noise
 
 
@@ -238,6 +241,40 @@ def test_generate_staged_interval3_matches_jax(setup):
     assert stages == ["prepare", "full", "reuse", "reuse", "full", "decode"]
 
 
+def test_generate_staged_sequential_cfg_with_reuse_matches_jax(setup):
+    """Sequential CFG under the attention cache: one UNet call per branch,
+    each branch with its own cache. K = 3 (multi-condition CFG), which runs
+    the per-branch loop that K = 2 runs: one cell of 3 steps at interval 3
+    with the ds1 site filter against the JAX package. Then one pass:
+    sequential denoise_full returns K caches, each with the batched cache's
+    filtered sites and the branches' values, and reusing them reproduces
+    the pass."""
+    ref, got, stages, _ = _staged_pair(setup, 3, guidance=dict(cfg_img=1.5, sequential=True),
+                                       attn_reuse_interval=3, attn_reuse_sites=DS1_SITES)
+    assert tp.max_err(got, ref) <= 5e-3
+    assert stages == ["prepare", "full", "reuse", "reuse", "decode"]
+
+    *_, teng, cfg, inp, _, _, _ = setup
+    z_cond = torch.zeros((1, cfg.video_length) + cfg.diffusion.latent_size + (4,))
+    x, t, ctx = _t(inp["x"][..., :4]), _t(inp["ts"]), _t(inp["ctx"])
+    x_k, t_k, contexts = (torch.cat([a, a[:1]]) for a in (x, t, ctx))  # K = 3 branches
+    fns = {seq: teng._denoise_fn(z_cond, contexts[:, None], 10.0,
+                                 GuidanceConfig(cfg_img=1.5, sequential=seq),
+                                 cache_sites=DS1_SITES) for seq in (False, True)}
+    with torch.no_grad():
+        v, cache = fns[False][1](x_k, t_k)
+        v_seq, caches = fns[True][1](x_k, t_k)
+        v_reuse = fns[True][2](x_k, t_k, caches)
+        v_base = fns[True][0](x_k, t_k)
+    assert isinstance(caches, list) and len(caches) == 3
+    assert all(set(c) == set(cache) for c in caches)
+    for name, val in cache.items():
+        assert tp.max_err(torch.cat([c[name] for c in caches]).numpy(), val.numpy()) <= 1e-4
+    assert tp.max_err(v_seq.numpy(), v.numpy()) <= 1e-4
+    assert tp.max_err(v_reuse.numpy(), v_seq.numpy()) <= 1e-5
+    assert tp.max_err(v_base.numpy(), v_seq.numpy()) <= 1e-5
+
+
 def test_generate_staged_reuse_differs_from_exact_sampling(setup):
     """Reuse is an approximation: it must not silently run exact sampling.
     f8 storage and the ff kind run end to end and stay finite."""
@@ -257,8 +294,5 @@ def test_unported_staged_options_raise(setup):
     args = (torch.from_numpy(frames), torch.from_numpy(ids).long(), torch.from_numpy(uids).long())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         teng.generate_staged(*args, steps=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        teng.generate_staged(*args, steps=2, attn_reuse_interval=2,
-                             guidance=GuidanceConfig(sequential=True))
     with pytest.raises(KeyError):
         teng.generate_staged(*args, steps=2, attn_reuse_interval=2, attn_reuse_dtype="f4")

@@ -8,11 +8,11 @@ leaf non-zero), carried across with `convert`, and get the same diffusion
 noise: the draws the JAX `run_diffusion` makes from the key it splits off
 its pipeline key, rebuilt by `torch_parity.jax_noise`.
 
-Both pipelines build their networks in float32 here. In bf16 the two
-packages round at other points, and random DUSt3R weights give pointmaps
-whose small differences expm1 and a five-step alignment of an ill-posed
-scene blow up (scene depths 8x apart in a trial): no fixed tolerance holds
-that. The bf16 networks are held against the JAX package module by module
+Both pipelines build their networks in float32 here
+(`torch_parity.pipelines_f32`). In bf16 the two packages round at other
+points, and random DUSt3R weights give pointmaps whose small differences
+expm1 and a five-step alignment of an ill-posed scene blow up (scene
+depths 8x apart in a trial): no fixed tolerance holds that. The bf16 networks are held against the JAX package module by module
 (`test_torch_dust3r.py`, `test_torch_generate.py`); the alignment and the
 rasterizer are float32 in both packages whatever the networks' type.
 
@@ -23,54 +23,21 @@ across a pixel border changes that pixel alone); the video within 5e-2 at
 most and 5e-3 on average.
 """
 
-import dataclasses
-import functools
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_parity as tp
-from viewcrafter_tpu.models.dust3r import Dust3rModel as JaxDust3r
-from viewcrafter_tpu.models.lvdm import LVDMParams
-from viewcrafter_tpu.models.lvdm import VideoDiffusionEngine as JaxEngine
 from viewcrafter_tpu.pipeline import InferenceOptions as JaxOptions
-from viewcrafter_tpu.pipeline import ViewCrafterPipeline as JaxPipeline
-from viewcrafter_tpu_torch.convert import dust3r_from_jax_params, from_jax_params
-from viewcrafter_tpu_torch.models.lvdm import SUBMODELS
 from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
 
 FIXTURE = dict(model="viewcrafter_tiny", dust3r_model="dust3r_tiny", ddim_steps=2,
                video_length=4, dust3r_size=64, niter=5, batch_size=2, d_theta=[5.0],
                d_phi=[10.0], d_r=[-0.1], weights_dtype="fp32")
 TRAJ = "0 15 30\n0 2 4\n0 0 0\n"
-
-
-def _numpy_tree(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-class JaxPipelineF32(JaxPipeline):
-    """The JAX pipeline with its two networks built in float32 (its
-    constructor builds them in bf16): the same programs, jitted as there."""
-
-    def __init__(self, opts):
-        super().__init__(opts, init_models=False)
-        self.engine = JaxEngine(self.model_cfg, dtype=jnp.float32)
-        self.dust3r = JaxDust3r(cfg=self.dust3r_cfg, dtype=jnp.float32)
-        self._dust3r_encode = jax.jit(
-            functools.partial(self.dust3r.apply, method=JaxDust3r.encode),
-            static_argnames=("is_portrait",))
-        self._dust3r_decode = jax.jit(
-            functools.partial(self.dust3r.apply, method=JaxDust3r.decode_pairs),
-            static_argnames=("h", "w", "is_portrait1", "is_portrait2"))
-        self.setup_models()
-        params = tp.random_params(opts.model, seed=5)
-        self.lvdm_params = LVDMParams(**{k: jax.tree.map(jnp.asarray, getattr(params, k))
-                                         for k in SUBMODELS})
 
 
 def _make_image(path):
@@ -109,13 +76,9 @@ def pipelines(tmp_path_factory):
     traj = tmp / "traj.txt"
     traj.write_text(TRAJ)
     common = dict(image_dir=img, exp_name="t", traj_txt=str(traj), **FIXTURE)
-    jp = JaxPipelineF32(JaxOptions(out_dir=str(tmp / "jax"), mode="single_view_target", **common))
-    tpipe = ViewCrafterPipeline(
-        InferenceOptions(out_dir=str(tmp / "torch"), mode="single_view_target", **common),
-        init_models=False, device="cpu", dtype=torch.float32)
-    tpipe.load_params(dust3r_from_jax_params(_numpy_tree(jp.dust3r_params)),
-                      from_jax_params({k: _numpy_tree(getattr(jp.lvdm_params, k))
-                                       for k in SUBMODELS}))
+    jp, tpipe = tp.pipelines_f32(
+        JaxOptions(out_dir=str(tmp / "jax"), mode="single_view_target", **common),
+        InferenceOptions(out_dir=str(tmp / "torch"), mode="single_view_target", **common))
     return jp, tpipe, {}
 
 
@@ -171,20 +134,6 @@ def test_pipeline_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     opts = InferenceOptions(**FIXTURE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ViewCrafterPipeline(opts, init_models=False)
-
-
-@pytest.mark.parametrize("change", [{"mode": "single_view_nbv"}, {"mode": "sparse_view_interp"},
-                                    {"mode": "single_view_eval"},
-                                    {"mode": "single_view_ref_iterative"}])
-def test_unported_modes_raise(pipelines, change):
-    tpipe = pipelines[1]
-    saved = tpipe.opts
-    tpipe.opts = dataclasses.replace(saved, **change)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tpipe.run()
-    finally:
-        tpipe.opts = saved
 
 
 def test_existing_checkpoint_and_mesh_raise(tmp_path):

@@ -1,9 +1,11 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): seeded
 numpy weights for every leaf of a JAX parameter tree, the JAX and port
-engines built from them, and the JAX package's noise chain rebuilt as plain
-arrays for the port's explicit-noise argument."""
+engines and pipelines built from them, and the JAX package's noise chain
+rebuilt as plain arrays for the port's explicit-noise argument."""
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -11,11 +13,14 @@ import numpy as np
 import torch
 
 from viewcrafter_tpu.config import get_model_config as jax_model_config
+from viewcrafter_tpu.models.dust3r import Dust3rModel as JaxDust3r
 from viewcrafter_tpu.models.lvdm import LVDMParams
 from viewcrafter_tpu.models.lvdm import VideoDiffusionEngine as JaxEngine
+from viewcrafter_tpu.pipeline import ViewCrafterPipeline as JaxPipeline
 from viewcrafter_tpu_torch.config import get_model_config
-from viewcrafter_tpu_torch.convert import from_jax_params
-from viewcrafter_tpu_torch.models.lvdm import GenerateNoise, VideoDiffusionEngine
+from viewcrafter_tpu_torch.convert import dust3r_from_jax_params, from_jax_params
+from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDiffusionEngine
+from viewcrafter_tpu_torch.pipeline import ViewCrafterPipeline
 
 # torch's CPU threads stay modest: the suite runs in several workers at once
 torch.set_num_threads(2)
@@ -91,3 +96,44 @@ def fixed_prompt_ids(n_words: int, seed: int = 0) -> np.ndarray:
 
 def max_err(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))
+
+
+def numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+class JaxPipelineF32(JaxPipeline):
+    """The JAX pipeline with its two networks built in float32 (its
+    constructor builds them in bf16): the same programs, jitted as there.
+    DUSt3R holds the weights `setup_models` draws with float32 storage, the
+    diffusion stack `random_params(seed=5)` (every leaf non-zero), so the
+    diffusion stack's own init, a compile of its own, is skipped."""
+
+    def __init__(self, opts):
+        assert opts.weights_dtype == "fp32"
+        super().__init__(opts, init_models=False)
+        self.engine = JaxEngine(self.model_cfg, dtype=jnp.float32)
+        self.dust3r = JaxDust3r(cfg=self.dust3r_cfg, dtype=jnp.float32)
+        self._dust3r_encode = jax.jit(
+            functools.partial(self.dust3r.apply, method=JaxDust3r.encode),
+            static_argnames=("is_portrait",))
+        self._dust3r_decode = jax.jit(
+            functools.partial(self.dust3r.apply, method=JaxDust3r.decode_pairs),
+            static_argnames=("h", "w", "is_portrait1", "is_portrait2"))
+        rng_d = jax.random.split(self.rng)[0]
+        self.dust3r_params = jax.jit(self.dust3r.init)(
+            rng_d, jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64, 3)))
+        params = random_params(opts.model, seed=5)
+        self.lvdm_params = LVDMParams(**{k: jax.tree.map(jnp.asarray, getattr(params, k))
+                                         for k in SUBMODELS})
+
+
+def pipelines_f32(jax_opts, port_opts):
+    """(JaxPipelineF32, the port's pipeline on the CPU in float32), both
+    holding the same weights."""
+    jp = JaxPipelineF32(jax_opts)
+    tpipe = ViewCrafterPipeline(port_opts, init_models=False, device="cpu", dtype=torch.float32)
+    tpipe.load_params(dust3r_from_jax_params(numpy_tree(jp.dust3r_params)),
+                      from_jax_params({k: numpy_tree(getattr(jp.lvdm_params, k))
+                                       for k in SUBMODELS}))
+    return jp, tpipe

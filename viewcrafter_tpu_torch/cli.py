@@ -8,9 +8,16 @@ copy of the JAX package's `cli.py`, with `--device` (default: the card).
   python -m viewcrafter_tpu_torch.cli --image_dir test/images/fruit.png \
       --mode single_view_txt --traj_txt test/trajs/loop2.txt
 
-Without checkpoints the models hold seeded random weights (the output is
-untrained noise); loading the released checkpoints, and the modes other
-than single_view_target and single_view_txt, are not ported yet and raise.
+  python -m viewcrafter_tpu_torch.cli --image_dir test/images_sparse/bicycle \
+      --mode sparse_view_interp
+
+  python -m viewcrafter_tpu_torch.cli --image_dir test/images/fruit.png \
+      --mode single_view_1drc_iterative --d_theta -5 -5 --d_phi 30 30 \
+      --d_r -0.2 -0.2 --d_x 0 0 --d_y 0 0
+
+Every mode of the reference runs. Without checkpoints the models hold
+seeded random weights (the output is untrained noise); loading the released
+checkpoints and multi-device sampling are not ported yet and raise.
 """
 
 from __future__ import annotations

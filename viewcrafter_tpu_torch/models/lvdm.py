@@ -177,9 +177,12 @@ class VideoDiffusionEngine:
           denoise(x_k, t) -> v                          (baseline)
           denoise_full(x_k, t) -> (v, attention cache)   (PAB collect)
           denoise_reuse(x_k, t, cache) -> v              (PAB broadcast)
-        The baseline is one batched UNet call with the shared-prefix dedup,
-        or (sequential) one call per branch; the two cache programs run
-        batched without the dedup, as in the JAX package.
+        Batched, the baseline is one UNet call with the shared-prefix dedup
+        and the two cache programs run batched without it, as in the JAX
+        package. Sequential (`guidance.sequential`), all three make one UNet
+        call per branch, and the cache is a list of K dicts, each branch's
+        own (the JAX package stacks them on a leading K axis under
+        `lax.map`).
 
         cache_kinds: the site families cached. cache_sites: site-name
         prefixes (e.g. ("down_0", "up_0", "init_attn")): only matching sites
@@ -190,18 +193,39 @@ class VideoDiffusionEngine:
         b = z_cond.shape[0]
         store_dtype = CACHE_DTYPES[cache_dtype]
         fs_batch = torch.full((k * b,), fs_val, dtype=torch.float32, device=z_cond.device)
-        if guidance.sequential and k > 1:
-            def denoise(x_k, t_batch):
-                xs = x_k.reshape((k, b) + x_k.shape[1:])
-                ts = t_batch.reshape(k, b)
-                fss = fs_batch.reshape(k, b)
-                outs = [self.unet(torch.cat([xs[j], z_cond], dim=-1), ts[j], contexts[j],
-                                  fs=fss[j]) for j in range(k)]
-                return torch.cat(outs, dim=0)
 
-            # no cache programs for sequential CFG: `generate_staged` refuses
-            # the combination before it would call them
-            return denoise, None, None
+        def keep_sites(cache):
+            if not cache_sites:
+                return cache
+            return {n: a for n, a in cache.items() if n.startswith(tuple(cache_sites))}
+
+        if guidance.sequential and k > 1:
+            fss = fs_batch.reshape(k, b)
+
+            def per_branch(x_k, t_batch, caches=None, **kw):
+                """One UNet call per branch j, with branch j's cache if given."""
+                xs, ts = x_k.reshape((k, b) + x_k.shape[1:]), t_batch.reshape(k, b)
+                outs = []
+                for j in range(k):
+                    if caches is not None:
+                        kw["attn_cache"] = caches[j]
+                    outs.append(self.unet(torch.cat([xs[j], z_cond], dim=-1), ts[j],
+                                          contexts[j], fs=fss[j], **kw))
+                return outs
+
+            def denoise(x_k, t_batch):
+                return torch.cat(per_branch(x_k, t_batch), dim=0)
+
+            def denoise_full(x_k, t_batch):
+                outs = per_branch(x_k, t_batch, collect_cache=True, cache_kinds=cache_kinds,
+                                  cache_dtype=store_dtype)
+                return torch.cat([v for v, _ in outs], dim=0), [keep_sites(c) for _, c in outs]
+
+            def denoise_reuse(x_k, t_batch, caches):
+                return torch.cat(per_branch(x_k, t_batch, caches, cache_kinds=cache_kinds),
+                                 dim=0)
+
+            return denoise, denoise_full, denoise_reuse
 
         ctx_flat = contexts.reshape((k * b,) + contexts.shape[2:])
         z_cond_k = z_cond.repeat((k,) + (1,) * (z_cond.ndim - 1))
@@ -216,9 +240,7 @@ class VideoDiffusionEngine:
             v, cache = self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
                                  fs=fs_batch, collect_cache=True, cache_kinds=cache_kinds,
                                  cache_dtype=store_dtype)
-            if cache_sites:
-                cache = {n: a for n, a in cache.items() if n.startswith(tuple(cache_sites))}
-            return v, cache
+            return v, keep_sites(cache)
 
         def denoise_reuse(x_k, t_batch, cache):
             return self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
@@ -302,9 +324,6 @@ class VideoDiffusionEngine:
             raise NotImplementedError(
                 "sharded generation (mesh, CFG-branch and tensor parallelism) is not ported "
                 "yet (see ROADMAP.md)")
-        if attn_reuse_interval > 1 and guidance.sequential and guidance.num_branches > 1:
-            raise NotImplementedError(
-                "attention reuse with sequential CFG is not ported yet (see ROADMAP.md)")
         if attn_reuse_interval > 1:
             # the JAX package caps a window near 24 steps for its serving
             # watchdog; on the card the cap bounds nothing, but the same

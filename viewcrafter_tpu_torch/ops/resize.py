@@ -8,10 +8,11 @@ The port of the JAX package's `ops/resize.py`:
     two agree to the last bits.
   - `resize_bilinear`: half-pixel bilinear (`jax.image.resize`'s "bilinear",
     torch's align_corners=False), the render -> diffusion-resolution upsample
-    (viewcrafter.py:158). For an upsample, torch's clamped source coordinate
-    and jax.image.resize's renormalised border weights give the same values;
-    a downsample would need jax.image.resize's antialiasing, which this
-    function refuses.
+    (viewcrafter.py:158) and the generated frame -> DUSt3R downsample of the
+    iterative modes. For an upsample, torch's clamped source coordinate and
+    jax.image.resize's renormalised border weights give the same values; a
+    downsample widens the triangle kernel by the scale, as jax.image.resize
+    does, which is torch's `antialias=True`.
 """
 
 from __future__ import annotations
@@ -47,15 +48,13 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Half-pixel bilinear upsample (or identity) of (..., H, W, C) in float32."""
+    """Half-pixel bilinear resize of (..., H, W, C) in float32; an axis that
+    shrinks is antialiased as jax.image.resize antialiases it."""
     h, w, c = x.shape[-3:]
-    if out_h < h or out_w < w:
-        raise NotImplementedError(
-            "resize_bilinear downsamples only with antialiasing, which is not ported yet "
-            "(see ROADMAP.md)")
     if (out_h, out_w) == (h, w):
         return x.float().clone()
     lead = x.shape[:-3]
     nchw = x.float().reshape(-1, h, w, c).permute(0, 3, 1, 2)
-    y = F.interpolate(nchw, size=(out_h, out_w), mode="bilinear", align_corners=False)
+    y = F.interpolate(nchw, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                      antialias=out_h < h or out_w < w)
     return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)

@@ -1,10 +1,19 @@
-"""ViewCrafter pipeline: a photo -> point cloud -> rendered trajectory ->
+"""ViewCrafter pipeline: photos -> point cloud -> rendered trajectory ->
 diffused novel-view video, on the card.
 
-The port of the JAX package's `pipeline.py` for the single-view modes
-`single_view_target` and `single_view_txt` (the reference's
-viewcrafter.py:108-169), with the same artifacts (render0.mp4, pcd0.ply,
-scene0.ply, diffusion0.mp4, viz_traj.mp4):
+The port of the JAX package's `pipeline.py`, mode for mode (the reference's
+viewcrafter.py:108-382), with the same artifacts (render*.mp4, diffusion*.mp4,
+pcd*.ply, scene0.ply, viz_traj.mp4, candidate_mask*.png):
+  - single_view_target / single_view_txt: one photo, one trajectory;
+  - sparse_view_interp: a B-spline path through N >= 2 photos, one
+    diffusion call per segment between two photos;
+  - single_view_eval: the trajectory of a clip recovered by DUSt3R, the
+    first frame's cloud rendered along it;
+  - single_view_ref_iterative, single_view_1drc_iterative and
+    single_view_nbv: every 6th generated frame joins the views, DUSt3R and
+    the alignment run again, and the next trajectory starts there (nbv picks
+    it among candidates by least coverage).
+Each pass runs
   1. DUSt3R pointmaps: each unique image encoded once, the decoder and heads
      run per directed pair (`run_dust3r`);
   2. global alignment: MST init on the host, `niter` Adam steps on the
@@ -15,16 +24,17 @@ scene0.ply, diffusion0.mp4, viz_traj.mp4):
      routes (`run_diffusion`).
 
 Everything runs on the pipeline's device: with `device=None` that is the
-card, and without one the pipeline raises; the CPU only when asked for. The
-modes `single_view_eval`, `single_view_nbv`, `sparse_view_interp` and the
-iterative ones, multi-device sampling and loading the released checkpoints
-are not ported yet and raise (see ROADMAP.md). Without checkpoints the
-models hold seeded random weights (`setup_models`), as the JAX package's
-dev mode does.
+card, and without one the pipeline raises; the CPU only when asked for.
+Multi-device sampling and loading the released checkpoints are not ported
+yet and raise (see ROADMAP.md). Without checkpoints the models hold seeded
+random weights (`setup_models`), as the JAX package's dev mode does.
 
 Unlike the JAX package, which pads the encoder batch to 8 images and the
 pair batch to `batch_size` to keep its compiled programs static, the port
-runs only the real images and pairs; the results are the same.
+runs only the real images and pairs; the results are the same. And where
+the JAX package keeps the elevation its previous `run()` left (the
+iterative and nbv modes lower it), the port starts every run from
+`opts.elevation`.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from viewcrafter_tpu_torch.geometry.transforms import (
     as_f32,
     inv_se3,
     make_intrinsics,
+    world_point_to_kth,
     world_point_to_obj,
 )
 from viewcrafter_tpu_torch.models.dust3r import Dust3rModel
@@ -61,7 +72,8 @@ from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 from viewcrafter_tpu_torch.utils import io as vio
 from viewcrafter_tpu_torch.utils.tokenizer import tokenize
 
-PORTED_MODES = ("single_view_target", "single_view_txt")
+MULTI_VIEW_MODES = ("sparse_view_interp", "single_view_eval")
+ITERATIVE_SAMPLE_RATE = 6  # every 6th generated frame joins the views (viewcrafter.py:311-382)
 
 
 @dataclasses.dataclass
@@ -146,18 +158,20 @@ def round_to_bf16_(module: torch.nn.Module) -> None:
 
 
 class ViewCrafterPipeline:
-    """Owns both model stacks and runs the ported modes.
+    """Owns both model stacks and runs every mode.
 
     dtype: the networks' compute type (DUSt3R's encoder and decoder, the
     diffusion engine), bf16 as in the JAX package; alignment and rendering
     are float32 either way.
 
-    on_stage(name), if given, is called after each stage: "dust3r_encode",
-    "dust3r_decode", "align_init" (the MST init, on the host), "align" (the
-    Adam steps and the scene), "render" (the rasterizer), "write_render"
-    (the upsample, render0.mp4 and the two PLY files), then the engine's
-    "prepare", one "step" per DDIM step and "decode", and "write_video"
-    (diffusion0.mp4). Timing hooks; the caller synchronizes."""
+    on_stage(name), if given, is called after each stage of every pass,
+    segment and iteration: "dust3r_encode", "dust3r_decode", "align_init"
+    (the MST init, on the host), "align" (the Adam steps, the scene and the
+    cleaning of the cloud), "render" (the rasterizer: the NBV candidates,
+    then the trajectory), "write_render" (the upsample, the render video and
+    the PLY files), then per diffusion call the engine's "prepare", one
+    "step" per DDIM step and "decode", and "write_video" (the diffusion
+    video). Timing hooks; the caller synchronizes."""
 
     def __init__(self, opts: InferenceOptions, init_models: bool = True, device=None,
                  model_cfg: Optional[ModelConfig] = None,
@@ -183,9 +197,11 @@ class ViewCrafterPipeline:
             self.setup_models()
         # state per run
         self.images: List[vio.LoadedImage] = []
+        self.img_gts: List[np.ndarray] = []
         self.scene: Optional[AlignedScene] = None
         self.guidance_frames: Optional[np.ndarray] = None  # the last render, upsampled
         self.elevation = opts.elevation
+        self._noise: Optional[List[GenerateNoise]] = None  # explicit draws left for this run
 
     def _stage(self, name: str) -> None:
         if self.on_stage is not None:
@@ -281,18 +297,26 @@ class ViewCrafterPipeline:
 
     @torch.no_grad()
     def run_render(self, pts3d: np.ndarray, colors: np.ndarray, c2ws: np.ndarray, focals,
-                   pps, hw: Tuple[int, int]) -> np.ndarray:
+                   pps, hw: Tuple[int, int], nbv: bool = False):
         """Rasterize the trajectory (viewcrafter.py:61-90): (M, 3) world
         points with (M, 3) colors in [0, 1] along (V, 4, 4) cam-to-world
-        poses -> (V, H, W, 3) frames in [0, 1] at dust3r resolution."""
+        poses -> ((V, H, W, 3) frames in [0, 1] at dust3r resolution, masks).
+        With nbv the masks are a second render of the same points in colour
+        1, (V, H, W, 1): each view's coverage; else None."""
         h, w = hw
-        K = make_intrinsics(np.broadcast_to(np.asarray(focals).reshape(-1), (len(c2ws),)),
-                            np.broadcast_to(np.asarray(pps).reshape(-1, 2), (len(c2ws), 2)))
-        frames = render_trajectory(as_f32(pts3d, self.device), as_f32(colors, self.device),
-                                   inv_se3(as_f32(c2ws, self.device)), as_f32(K, self.device),
-                                   h, w)
+        K = as_f32(make_intrinsics(
+            np.broadcast_to(np.asarray(focals).reshape(-1), (len(c2ws),)),
+            np.broadcast_to(np.asarray(pps).reshape(-1, 2), (len(c2ws), 2))), self.device)
+        pts = as_f32(pts3d, self.device)
+        w2cs = inv_se3(as_f32(c2ws, self.device))
+
+        def render(cols):
+            return render_trajectory(pts, cols, w2cs, K, h, w).cpu().numpy()
+
+        frames = render(as_f32(colors, self.device))
+        masks = render(torch.ones((len(pts), 1), device=self.device)) if nbv else None
         self._stage("render")
-        return frames.cpu().numpy()
+        return frames, masks
 
     def _selected_points(self, scene: AlignedScene, masks: Optional[np.ndarray], view_sel=None):
         pts, cols = scene.pts3d, scene.imgs
@@ -321,20 +345,58 @@ class ViewCrafterPipeline:
             sel_p, sel_c = sel_p.reshape(-1, 3)[::3], sel_c.reshape(-1, 3)[::3]
         return vio.save_pointcloud_ply(sel_p, sel_c, path)
 
+    def _conf_bg_masks(self, scene: AlignedScene) -> np.ndarray:
+        """Confidence or background-depth masks of a multi-view cloud
+        (viewcrafter.py:185-190). As the reference, the raw confidence is
+        compared with log(min_conf_thr), and the background depth is taken
+        over the 40-row inner crop."""
+        conf_mask = scene.im_conf > float(np.log(self.opts.min_conf_thr))
+        bg = []
+        for d in scene.depths:
+            inner = d[40:-40, :] if d.shape[0] > 80 else d
+            bg.append(d > self.opts.bg_trd * (inner.max() + inner.min()))
+        return conf_mask | np.stack(bg)
+
+    def _choose_nbv(self, it: int, anchor, pts, colors, focal, pp, hw, num_candidates: int):
+        """Next best view (viewcrafter.py:200-214): render the candidates'
+        coverage, take the least covered, save its mask and lower the
+        elevation by its theta. Returns the trajectory towards it."""
+        opts = self.opts
+        cand, thetas, phis = traj.generate_candidate_poses(anchor, opts.d_theta[0], opts.d_phi[0],
+                                                           num_candidates=num_candidates)
+        _, viewmasks = self.run_render(pts, np.ones_like(colors), cand, focal, pp, hw, nbv=True)
+        nbv_id = int(np.argmin(viewmasks.sum(axis=(1, 2, 3))))
+        vio.save_image(viewmasks[nbv_id],
+                       os.path.join(opts.save_dir, f"candidate_mask{it}_nbv{nbv_id}.png"))
+        self.elevation -= thetas[nbv_id]
+        return traj.generate_traj_specified(anchor, thetas[nbv_id], phis[nbv_id], opts.d_r[0], 0,
+                                            0, opts.video_length)
+
     # ------------------------------------------------------------------
     # diffusion
     # ------------------------------------------------------------------
+
+    def _next_noise(self) -> Optional[GenerateNoise]:
+        if self._noise is None:
+            return None
+        if not self._noise:
+            raise ValueError("run(noise=...) holds fewer draws than the mode makes diffusion "
+                             "calls")
+        return self._noise.pop(0)
 
     def run_diffusion(self, frames01: np.ndarray, cond_idx: int = 0,
                       noise: Optional[GenerateNoise] = None) -> np.ndarray:
         """Guidance frames in [0, 1] (T, H, W, 3) -> generated video in
         [-1, 1] (viewcrafter.py:93-106 + image_guided_synthesis). The draws
-        come from `noise` if given (one sample only), else from the
-        pipeline's generator, seeded with opts.seed. With n_samples > 1 the
-        extra samples are saved as diffusion_sample{i}.mp4 and sample 0 is
-        returned, as in the reference."""
+        come from `noise` if given, else from the next of the draws handed
+        to `run(noise=...)`, else from the pipeline's generator, seeded with
+        opts.seed; explicit draws cover one sample only. With n_samples > 1
+        the extra samples are saved as diffusion_sample{i}.mp4 and sample 0
+        is returned, as in the reference."""
         opts = self.opts
         n = max(1, opts.n_samples)
+        if noise is None:
+            noise = self._next_noise()
         if noise is not None and n > 1:
             raise ValueError("explicit noise covers one sample; n_samples is "
                              f"{opts.n_samples}")
@@ -364,6 +426,12 @@ class ViewCrafterPipeline:
                            os.path.join(opts.save_dir, f"diffusion_sample{si}.mp4"))
         return results[0]  # (T, H, W, 3) in [-1, 1]
 
+    def _diffuse_and_save(self, frames01: np.ndarray, name: str) -> np.ndarray:
+        result = self.run_diffusion(frames01)
+        vio.save_video((result + 1.0) / 2.0, os.path.join(self.opts.save_dir, name))
+        self._stage("write_video")
+        return result
+
     # ------------------------------------------------------------------
     # shared mode plumbing
     # ------------------------------------------------------------------
@@ -390,18 +458,20 @@ class ViewCrafterPipeline:
     # modes
     # ------------------------------------------------------------------
 
-    def nvs_single_view(self, save_suffix: str = "0",
-                        noise: Optional[GenerateNoise] = None) -> np.ndarray:
-        """viewcrafter.py:108-169. The scene was built from the duplicated
-        single image; the last view is the anchor."""
+    def nvs_single_view(self, save_suffix: str = "0") -> np.ndarray:
+        """viewcrafter.py:108-169, also the first pass of the iterative
+        modes. The scene was built from the duplicated single image; the
+        last view is the anchor."""
         opts = self.opts
         scene = self.scene
         poses, pts, radius, (h, w) = self._scene_for_anchor(k=-1, center_scale_ref=-1)
         focal = scene.focals[-1]
         pp = scene.principal_points[-1]
         anchor = poses[-1]
+        sel_p, sel_c = self._selected_points_last(pts, scene)
 
-        if opts.mode == "single_view_target":
+        if opts.mode in ("single_view_target", "single_view_ref_iterative",
+                         "single_view_1drc_iterative"):
             depth_avg = radius / opts.center_scale
             c2ws = traj.generate_traj_specified(
                 anchor, opts.d_theta[0], opts.d_phi[0], opts.d_r[0],
@@ -415,11 +485,12 @@ class ViewCrafterPipeline:
             r = [float(x) for x in lines[2].split()]
             c2ws = traj.generate_traj_txt(anchor, phi, theta, r, opts.video_length)
             vio.save_trajectory_video(c2ws, os.path.join(opts.save_dir, "viz_traj.mp4"))
+        elif opts.mode == "single_view_nbv":
+            c2ws = self._choose_nbv(0, anchor, sel_p, sel_c, focal, pp, (h, w), num_candidates=2)
         else:
-            raise not_ported(f"mode {opts.mode!r}")
+            raise KeyError(f"invalid mode: {opts.mode}")
 
-        sel_p, sel_c = self._selected_points_last(pts, scene)
-        frames = self._upscale_to_target(self.run_render(sel_p, sel_c, c2ws, focal, pp, (h, w)))
+        frames = self._upscale_to_target(self.run_render(sel_p, sel_c, c2ws, focal, pp, (h, w))[0])
         frames[0] = (self.img_ori + 1.0) / 2.0
         if opts.mode == "single_view_txt" and phi[-1] == 0.0 and theta[-1] == 0.0 and r[-1] == 0.0:
             frames[-1] = (self.img_ori + 1.0) / 2.0
@@ -434,37 +505,171 @@ class ViewCrafterPipeline:
                        np.asarray(c2ws), focals=[float(focal)] * len(c2ws),
                        imsizes=[(w, h)] * len(c2ws))
         self._stage("write_render")
-        result = self.run_diffusion(frames, noise=noise)
-        vio.save_video((result + 1.0) / 2.0,
-                       os.path.join(opts.save_dir, f"diffusion{save_suffix}.mp4"))
+        return self._diffuse_and_save(frames, f"diffusion{save_suffix}.mp4")
+
+    def nvs_sparse_view(self, it: int) -> np.ndarray:
+        """Pass `it` >= 1 of the iterative modes (viewcrafter.py:171-234):
+        the masked cloud of every view so far, re-anchored at the first view
+        (ref) or the last (1drc, nbv)."""
+        opts = self.opts
+        scene = self.scene
+        masks = self._conf_bg_masks(scene)
+        if opts.mode == "single_view_ref_iterative":
+            poses, pts, radius, (h, w) = self._scene_for_anchor(k=0, center_scale_ref=0)
+            anchor, focal, pp = poses[0], scene.focals[0], scene.principal_points[0]
+            cond_img = self.img_ori
+        elif opts.mode in ("single_view_1drc_iterative", "single_view_nbv"):
+            if opts.mode == "single_view_1drc_iterative":
+                self.elevation -= opts.d_theta[it - 1]
+            poses, pts, radius, (h, w) = self._scene_for_anchor(k=-1, center_scale_ref=0)
+            anchor, focal, pp = poses[-1], scene.focals[-1], scene.principal_points[-1]
+            cond_img = self.images[-1].img_ori
+        else:
+            raise KeyError(f"invalid iterative mode: {opts.mode}")
+        anchored = scene_pts_override(scene, pts)
+        sel_p, sel_c = self._selected_points(anchored, masks)
+        if opts.mode == "single_view_nbv":
+            c2ws = self._choose_nbv(it, anchor, sel_p, sel_c, focal, pp, (h, w), num_candidates=3)
+        else:
+            c2ws = traj.generate_traj_specified(anchor, opts.d_theta[it], opts.d_phi[it],
+                                                opts.d_r[it], 0, 0, opts.video_length)
+
+        frames = self._upscale_to_target(self.run_render(sel_p, sel_c, c2ws, focal, pp, (h, w))[0])
+        frames[0] = (cond_img + 1.0) / 2.0
+        self.guidance_frames = frames
+        vio.save_video(frames, os.path.join(opts.save_dir, f"render{it}.mp4"))
+        self._export_pc(os.path.join(opts.save_dir, f"pcd{it}.ply"), sel_p, sel_c, scene=anchored)
+        self._stage("write_render")
+        return self._diffuse_and_save(frames, f"diffusion{it}.mp4")
+
+    def nvs_sparse_view_interp(self) -> np.ndarray:
+        """A B-spline path through N >= 2 views (viewcrafter.py:236-279): the
+        views sit at every (video_length - 1)-th frame, and each segment
+        between two of them is one diffusion call; the segments' videos are
+        concatenated."""
+        opts = self.opts
+        scene = self.scene
+        h, w = scene.depths.shape[1:]
+        n = len(self.images)
+        masks = None if n == 2 else self._conf_bg_masks(scene)
+        c2ws = traj.interp_traj(scene.poses, n_inserts=opts.video_length)
+        focals = traj.interpolate_sequence(scene.focals, opts.video_length - 2)
+        pps = traj.interpolate_sequence(scene.principal_points, opts.video_length - 2)
+        sel_p, sel_c = self._selected_points(scene, masks)
+        frames = self._upscale_to_target(self.run_render(sel_p, sel_c, c2ws, focals, pps, (h, w))[0])
+        seg = opts.video_length - 1
+        for i in range(n):
+            frames[i * seg] = (self.img_gts[i] + 1.0) / 2.0
+        self.guidance_frames = frames
+        vio.save_video(frames, os.path.join(opts.save_dir, "render.mp4"))
+        self._export_pc(os.path.join(opts.save_dir, "pcd.ply"), sel_p, sel_c, scene=scene)
+        self._stage("write_render")
+        result = np.concatenate([self.run_diffusion(frames[i * seg:i * seg + opts.video_length])
+                                 for i in range(n - 1)])
+        vio.save_video((result + 1.0) / 2.0, os.path.join(opts.save_dir, "diffusion.mp4"))
         self._stage("write_video")
         return result
+
+    def nvs_single_view_eval(self) -> np.ndarray:
+        """The eval protocol (viewcrafter.py:281-309): the clip's own
+        trajectory, recovered from all its frames and re-anchored at frame 0;
+        then frame 0 alone, duplicated, gives the cloud (and replaces
+        `self.scene`), rendered along that trajectory."""
+        opts = self.opts
+        scene = self.scene
+        h, w = scene.depths.shape[1:]
+        poses, _ = world_point_to_kth(as_f32(scene.poses, self.device),
+                                      as_f32(scene.pts3d, self.device), 0)
+        c2ws = poses.cpu().numpy()
+        focals, pps = scene.focals, scene.principal_points
+        ref_scene = self.run_dust3r([self.images[0], self.images[0]])
+        sel_p = ref_scene.pts3d[0].reshape(-1, 3)
+        sel_c = ref_scene.imgs[0].reshape(-1, 3)
+        frames = self._upscale_to_target(
+            self.run_render(sel_p, sel_c, c2ws, focals[:1], pps[:1], (h, w))[0])
+        frames[0] = (self.img_gts[0] + 1.0) / 2.0
+        self.guidance_frames = frames
+        vio.save_video(frames, os.path.join(opts.save_dir, "render_ref0.mp4"))
+        self._stage("write_render")
+        return self._diffuse_and_save(frames, "diffusion_ref0.mp4")
+
+    def _iterative(self, n_iters: int) -> List[np.ndarray]:
+        """The iterative modes (viewcrafter.py:311-382): pass 0 is the
+        single-view mode; before each later pass every 6th generated frame,
+        taken down to DUSt3R's size, joins the views, and DUSt3R and the
+        alignment run again on all of them with the cloud cleaned."""
+        results = []
+        for it in range(n_iters):
+            if it == 0:
+                result = self.nvs_single_view()
+            else:
+                for i in range(ITERATIVE_SAMPLE_RATE, len(result), ITERATIVE_SAMPLE_RATE):
+                    frame = vio.resize_to_dust3r(result[i], hw=self.images[0].img.shape[:2],
+                                                 device=self.device)
+                    self.images.append(vio.LoadedImage(img=frame, img_ori=result[i],
+                                                       index=len(self.images)))
+                self.run_dust3r(self.images, clean_pc=True)
+                result = self.nvs_sparse_view(it)
+            results.append(result)
+        return results
 
     # ------------------------------------------------------------------
     # entry
     # ------------------------------------------------------------------
 
     def load_inputs(self, images: Optional[List[vio.LoadedImage]] = None) -> None:
-        """The input view at dust3r resolution, duplicated into a pair, and
-        its crop at the diffusion resolution (`img_ori`): loaded from
-        opts.image_dir, or taken from `images` if given."""
+        """The input views at DUSt3R's resolution and their crops at the
+        diffusion resolution (`img_ori`, `img_gts`): loaded from
+        opts.image_dir, or taken from `images` if given. The multi-view
+        modes need two views or more; the others use the first view,
+        duplicated into a pair."""
         if images is None:
             images = vio.load_images(self.opts.image_dir, size=self.opts.dust3r_size,
                                      target_hw=(self.model_cfg.height, self.model_cfg.width))
+        images = list(images)
         self.img_ori = images[0].img_ori
-        if len(images) == 1:
-            images = [images[0], dataclasses.replace(images[0], index=1)]
+        if self.opts.mode in MULTI_VIEW_MODES:
+            if len(images) < 2:
+                raise ValueError("sparse/eval modes need >= 2 input views")
+            self.img_gts = [im.img_ori for im in images]
+        else:
+            self.img_gts = [self.img_ori]
+            if len(images) == 1:
+                images = [images[0], dataclasses.replace(images[0], index=1)]
         self.images = images
 
-    def run(self, noise: Optional[GenerateNoise] = None,
-            images: Optional[List[vio.LoadedImage]] = None) -> np.ndarray:
-        """The whole photo -> video path for opts.mode. `images`: the input
-        view(s), loaded from opts.image_dir if not given; `noise`: the
-        diffusion stage's draws (see `run_diffusion`). Returns the video
-        (T, H, W, 3) in [-1, 1]."""
-        if self.opts.mode not in PORTED_MODES:
-            raise not_ported(f"mode {self.opts.mode!r}")
-        os.makedirs(self.opts.save_dir, exist_ok=True)
+    def run(self, noise=None, images: Optional[List[vio.LoadedImage]] = None):
+        """The whole path of opts.mode. `images`: the input views, loaded
+        from opts.image_dir if not given. `noise`: the diffusion draws, one
+        `GenerateNoise` or a list of them, one per diffusion call (an
+        iteration or a segment) in order; it raises if the list runs short,
+        and without it the pipeline's generator draws. Returns the video
+        (T, H, W, 3) in [-1, 1], or the list of each iteration's video in
+        the iterative modes."""
+        opts = self.opts
+        modes = {
+            "single_view_target": self.nvs_single_view,
+            "single_view_txt": self.nvs_single_view,
+            "sparse_view_interp": self.nvs_sparse_view_interp,
+            "single_view_eval": self.nvs_single_view_eval,
+            "single_view_ref_iterative": lambda: self._iterative(len(opts.d_phi)),
+            "single_view_1drc_iterative": lambda: self._iterative(len(opts.d_phi)),
+            "single_view_nbv": lambda: self._iterative(3),
+        }
+        if opts.mode not in modes:
+            raise KeyError(f"invalid mode: {opts.mode}")
+        os.makedirs(opts.save_dir, exist_ok=True)
+        self._noise = None if noise is None else (
+            [noise] if isinstance(noise, GenerateNoise) else list(noise))
+        self.elevation = opts.elevation
         self.load_inputs(images)
-        self.run_dust3r(self.images)
-        return self.nvs_single_view(noise=noise)
+        self.run_dust3r(self.images, clean_pc=opts.mode == "sparse_view_interp")
+        try:
+            return modes[opts.mode]()
+        finally:
+            self._noise = None
+
+
+def scene_pts_override(scene: AlignedScene, pts: np.ndarray) -> AlignedScene:
+    """The scene with re-anchored points (after world_point_to_obj)."""
+    return dataclasses.replace(scene, pts3d=np.asarray(pts))

@@ -7,6 +7,8 @@ the port needs none of them. Parity targets (the reference's):
     multiples, (0.5, 0.5) normalization, the 576x1024 `img_ori` crop):
     extern/dust3r/dust3r/utils/image.py:18-140
   - save_video (fps 8 h264): utils/pvd_utils.py:38-48
+  - the generated frame -> DUSt3R resize of the iterative modes:
+    utils/pvd_utils.py get_input_dict
   - ASCII PLY export with dummy normals: utils/pvd_utils.py:438-473
 
 Where a writer finds neither imageio nor PIL, it writes the frames as one
@@ -106,6 +108,21 @@ def load_images(folder_or_list, size: int = 512, square_ok: bool = False,
     return out
 
 
+def resize_to_dust3r(frame: np.ndarray, hw: Tuple[int, int] = (288, 512),
+                     device=None) -> np.ndarray:
+    """Generated frame (H, W, 3) in [-1, 1] -> DUSt3R's input size (hw),
+    half-pixel bilinear with `jax.image.resize`'s antialiasing when it
+    shrinks (pvd_utils.py get_input_dict), computed on `device` (the card
+    unless the caller asks for the CPU)."""
+    import torch
+
+    from viewcrafter_tpu_torch.models.lvdm import resolve_device
+    from viewcrafter_tpu_torch.ops.resize import resize_bilinear
+
+    x = torch.as_tensor(np.asarray(frame, np.float32), device=resolve_device(device))
+    return resize_bilinear(x, hw[0], hw[1]).cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # video / image / ply writers
 # ---------------------------------------------------------------------------
@@ -149,6 +166,22 @@ def save_video(frames: np.ndarray, path: str, fps: int = 8) -> str:
     for i, f in enumerate(arr):
         Image.fromarray(f).save(os.path.join(frame_dir, f"{i:04d}.png"))
     return frame_dir
+
+
+def save_image(img: np.ndarray, path: str) -> str:
+    """One image (H, W, C) in [0, 1] or [-1, 1] to `path` through PIL, a
+    single channel squeezed (the NBV candidate masks); without PIL the
+    uint8 array goes to <path>.npy. Returns what was written."""
+    arr = to_uint8(img)
+    if arr.ndim == 3 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        from PIL import Image
+    except ImportError:
+        return _save_npy(arr, path)
+    Image.fromarray(arr).save(path)
+    return path
 
 
 def save_pointcloud_ply(points: np.ndarray, colors: np.ndarray, path: str) -> str:
