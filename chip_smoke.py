@@ -16,6 +16,12 @@ Phases, each printing JSON lines:
            the CPU; three times: default routes, both opt-in routes on, and
            routes on at 40 frames (where the temporal attentions leave the layer kernel for
            `temporal_attention_fused`)
+  relpos_causal_wiring
+           the same small config with the relative-position bias and causal
+           temporal attention, card against CPU: every temporal attention
+           takes the plain path (the JAX package's gate), so
+           `fused_temporal_layer` launches nowhere and the other three
+           main-path kernels do
   main     `VideoDiffusionEngine.generate` on the flagship `viewcrafter_25`
            (576x1024x25, B=1, K=2 CFG, 3 DDIM steps, seeded random weights),
            default routes: stage times, peak memory, output checks, launches
@@ -68,6 +74,18 @@ Phases, each printing JSON lines:
            frame 0, the identity camera where its two alignments meet; an
            "eval_geometry" line says what the render sees from each camera
            (`eval_geometry`)
+  checkpoint
+           the released checkpoints' path at full width: seeded weights of
+           `viewcrafter_25` and `dust3r_512` (rounded to bf16) written by
+           `utils.checkpoint.*_to_reference` in the released containers as
+           bf16 leaves (the diffusion file with the legacy `framestride_embed`
+           name and an unused key, the DUSt3R file without `dec_blocks2.*`)
+           into a temporary directory, loaded by `ViewCrafterPipeline` through
+           `ckpt_path` / `model_path`; every loaded tensor must equal its
+           source; then one DUSt3R run of 2 images (fullkv 24/48, 10 aligner
+           steps) and one `engine.generate` of 2 DDIM steps with the main
+           path's launches per UNet eval; file sizes, the seed / write / load
+           seconds (`StageTimer`), peak memory
   kernels  each kernel against its plain torch twin at every input shape any
            phase above launched it with (all eight kernels, all paths, the
            wiring runs included), the two attention kernels once more near
@@ -110,6 +128,8 @@ PAB_STEPS, PAB_INTERVAL, PAB_SITES = 6, 3, ("down_0", "up_0", "init_attn")
 LONG_FRAMES = 40
 GEOMETRY_WIRING_STEPS = 10
 PIPELINE_NITER, PIPELINE_STEPS = 300, 2
+CHECKPOINT_NITER = 10  # aligner steps of the checkpoint phase's DUSt3R run
+RELPOS_CAUSAL = {"use_relative_position": True, "use_causal_attention": True}
 EVAL_FRAMES = 6  # frames of the eval phase's clip (test/eval1 has 25)
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
 # the near one-hot sites of the attention kernels (main-path ds2 sites, the
@@ -407,10 +427,12 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
 # --------------------------------------------------------------------------
 
 
-def wiring_config(frames: int = 8):
+def wiring_config(frames: int = 8, **unet_flags):
     """A small ModelConfig whose UNet passes every kernel gate: head dim 64,
     two levels, a 16x16 latent (S = 256 and 64) and `frames` frames (8: the
-    layer kernel's gate; 33 to 64: `temporal_attention_fused`'s)."""
+    layer kernel's gate; 33 to 64: `temporal_attention_fused`'s).
+    `unet_flags`: UNetConfig fields to set (the relative-position bias, the
+    causal mask)."""
     from viewcrafter_tpu_torch.config import (
         CLIPTextConfig, CLIPVisionConfig, DiffusionConfig, ModelConfig, ResamplerConfig,
         UNetConfig, VAEConfig)
@@ -420,7 +442,7 @@ def wiring_config(frames: int = 8):
         diffusion=DiffusionConfig(latent_size=(16, 16)),
         unet=UNetConfig(model_channels=64, num_res_blocks=1, attention_resolutions=(1, 2),
                         channel_mult=(1, 2), num_head_channels=64, context_dim=64,
-                        temporal_length=frames),
+                        temporal_length=frames, **unet_flags),
         vae=VAEConfig(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1),
         resampler=ResamplerConfig(dim=64, depth=1, dim_head=16, heads=4, num_queries=4,
                                   embedding_dim=48, output_dim=64, video_length=4),
@@ -447,20 +469,24 @@ def route_kwargs(routes: bool) -> dict:
     return {"cross_attn_impl": "auto", "gn_fused": True} if routes else {}
 
 
-def run_wiring(gen, routes: bool = False, frames: int = 8, guidance=None, **staged) -> tuple:
+def run_wiring(gen, routes: bool = False, frames: int = 8, guidance=None, unet_flags=None,
+               **staged) -> tuple:
     """`generate_staged` (without `staged` arguments such as attention reuse,
     the same as `generate`) with every kernel on the card against the plain
     path on the CPU: same weights, same
     noise, same routes, same `guidance` (default K = 2 batched). The
     yardstick for the tolerance is the CPU run's own bf16 distance from its
-    float32 run. Returns (result, launch sites)."""
+    float32 run. `unet_flags` (e.g. RELPOS_CAUSAL): UNetConfig fields of the
+    small config; with a mask or a bias no temporal attention may take a
+    kernel. Returns (result, launch sites)."""
     import torch
 
     from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, VideoDiffusionEngine
     from viewcrafter_tpu_torch.ops import kernels
     from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
-    cfg = wiring_config(frames)
+    unet_flags = unet_flags or {}
+    cfg = wiring_config(frames, **unet_flags)
     kw = route_kwargs(routes)
     cuda = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cuda", **kw)
     cuda.init_params(seed=1)
@@ -487,7 +513,9 @@ def run_wiring(gen, routes: bool = False, frames: int = 8, guidance=None, **stag
     err, mean_err = (out - o32).abs().max().item(), (out - o32).abs().mean().item()
     yard, yard_mean = (o16 - o32).abs().max().item(), (o16 - o32).abs().mean().item()
     tol, mean_tol = 2 * yard + 1e-2, 2 * yard_mean + 1e-3
-    res = {"phase": "wiring", "routes": routes, "frames": frames, "shape": list(out.shape),
+    phase = "relpos_causal_wiring" if unet_flags else "wiring"
+    res = {"phase": phase, "routes": routes, "frames": frames, "unet_flags": unet_flags,
+           "shape": list(out.shape),
            "sequential_cfg": kw["guidance"].sequential, "staged": staged,
            "max_abs_err_vs_cpu_f32": err,
            "mean_abs_err_vs_cpu_f32": mean_err, "cpu_bf16_vs_f32": yard,
@@ -497,19 +525,21 @@ def run_wiring(gen, routes: bool = False, frames: int = 8, guidance=None, **stag
     sites = kernels.launch_sites()
     emit(res)
     if not (err <= tol and mean_err <= mean_tol):
-        raise AssertionError(f"wiring: card vs CPU f32 max {err} (tol {tol}), "
+        raise AssertionError(f"{phase}: card vs CPU f32 max {err} (tol {tol}), "
                              f"mean {mean_err} (tol {mean_tol})")
     # the kernels this configuration must reach: the four of the default
     # route (the layer kernel only up to 32 frames), the two route kernels
-    # when asked for, the temporal attention kernel past 32 frames
-    expect = set(MAIN_KERNELS) - ({"fused_temporal_layer"} if frames > 32 else set())
+    # when asked for, the temporal attention kernel past 32 frames; with a
+    # mask or a bias neither temporal kernel
+    masked = any(unet_flags.values())
+    expect = set(MAIN_KERNELS) - ({"fused_temporal_layer"} if frames > 32 or masked else set())
     if routes:
         expect |= {"group_norm_fused", "dual_cross_attention"}
-    if frames > 32:
+    if frames > 32 and not masked:
         expect.add("temporal_attention_fused")
     wrong = [k for k, v in counts.items() if (v > 0) != (k in expect)]
     if wrong:
-        raise AssertionError(f"wiring: launches {counts} do not match the expected set "
+        raise AssertionError(f"{phase}: launches {counts} do not match the expected set "
                              f"{sorted(expect)}: {wrong}")
     return res, sites
 
@@ -1018,6 +1048,109 @@ def run_mode(phase: str, mode: str, images: list, fullkv_per_dust3r: list, frame
     return res, sites, pass_sites
 
 
+def run_checkpoint(gen, smi: str) -> tuple:
+    """The released checkpoints' path at full width (viewcrafter_25 +
+    dust3r_512): seeded pipeline weights, rounded to bf16, written under the
+    reference's names in the released containers as bf16 leaves (exact for
+    bf16 values) into a temporary directory, then loaded by a new
+    `ViewCrafterPipeline` through `ckpt_path` / `model_path`. Fails unless
+    every loaded tensor equals its source, one DUSt3R run of 2 images
+    launches fullkv 24 / 48 times (encoder / decoder) and one
+    `engine.generate` of 2 DDIM steps launches the four main-path kernels as
+    the main path does. Returns (result, launch sites)."""
+    import tempfile
+
+    import torch
+
+    from viewcrafter_tpu_torch.config import get_dust3r_config, get_model_config
+    from viewcrafter_tpu_torch.models.lvdm import SUBMODELS
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
+    from viewcrafter_tpu_torch.utils import checkpoint as ck
+    from viewcrafter_tpu_torch.utils.profiling import StageTimer
+
+    cfg, dcfg = get_model_config("viewcrafter_25"), get_dust3r_config("dust3r_512")
+    timer, stamps = StageTimer(), []
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        stamps.append((name, kernels.launch_counts()["fullkv_attention"]))
+
+    def opts(**kw):
+        return InferenceOptions(model=cfg.name, dust3r_model="dust3r_512",
+                                niter=CHECKPOINT_NITER, seed=7, **kw)
+
+    with timer.stage("seed"):
+        seeded = ViewCrafterPipeline(opts(ckpt_path=None, model_path=None))
+        torch.cuda.synchronize()
+    lvdm_src = {n: {k: v.to("cpu", torch.bfloat16) for k, v in
+                    getattr(seeded.engine, n).state_dict().items()} for n in SUBMODELS}
+    dust3r_src = {k: v.to("cpu", torch.bfloat16) for k, v in seeded.dust3r.state_dict().items()}
+    del seeded
+    torch.cuda.empty_cache()
+    # a DUSt3R file without a second decoder loads the first one twice
+    for k in dust3r_src:
+        if ".block2_" in k:
+            dust3r_src[k] = dust3r_src[k.replace(".block2_", ".block1_")]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = (os.path.join(tmp, "model.ckpt"),
+                 os.path.join(tmp, "DUSt3R_ViTLarge_BaseDecoder_512_dpt.pth"))
+        with timer.stage("write"):
+            ref = ck.lvdm_to_reference(lvdm_src, cfg)
+            legacy = {k.replace("fps_embedding", "framestride_embed"): v for k, v in ref.items()}
+            legacy["alphas_cumprod"] = torch.ones(1000, dtype=torch.bfloat16)  # no map takes it
+            torch.save({"state_dict": legacy}, paths[0])
+            dref = ck.dust3r_to_reference(dust3r_src, dcfg)
+            one_decoder = {k: v for k, v in dref.items() if not k.startswith("dec_blocks2.")}
+            torch.save({"model": one_decoder, "args": "AsymmetricCroCo3DStereo(...)"}, paths[1])
+            del ref, legacy, dref, one_decoder
+        sizes = [os.path.getsize(p) / 2 ** 30 for p in paths]
+        torch.cuda.reset_peak_memory_stats()
+        with timer.stage("load"):
+            pipe = ViewCrafterPipeline(opts(ckpt_path=paths[0], model_path=paths[1]),
+                                       on_stage=on_stage)
+            torch.cuda.synchronize()
+        load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_equal, differ = 0, []
+    loaded = [(f"{n}.{k}", v, lvdm_src[n][k]) for n in SUBMODELS
+              for k, v in getattr(pipe.engine, n).state_dict().items()]
+    loaded += [(f"dust3r.{k}", v, dust3r_src[k]) for k, v in pipe.dust3r.state_dict().items()]
+    for key, got, want in loaded:
+        if torch.equal(got, want.to(got.device, got.dtype)):
+            n_equal += 1
+        else:
+            differ.append(key)
+    del loaded
+
+    kernels.reset_launches()
+    stamps.append(("start", 0))
+    h, w = cfg.height, cfg.width
+    pipe.run_dust3r(shifted_views(2, 24, h, w))
+    marks = dict(stamps)
+    fullkv = [marks["dust3r_encode"], marks["dust3r_decode"] - marks["dust3r_encode"]]
+    dust3r_sites = kernels.launch_sites()
+    gen_res, gen_sites, _ = drive("checkpoint_generate", cfg, gen, 2, routes=False, eng=pipe.engine)
+    res = {"phase": "checkpoint", "model": cfg.name, "dust3r": "dust3r_512",
+           "file_gib": {"diffusion": sizes[0], "dust3r": sizes[1]},
+           "tensors_equal": n_equal, "tensors_differ": differ[:20],
+           "seconds": timer.totals(), "load_peak_mem_gib": load_peak,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loaded_real_ckpt": pipe.loaded_real_ckpt, "dust3r_images": 2,
+           "fullkv_encoder_decoder": fullkv, "generate_steps": 2,
+           "generate_launches_per_unet_eval": gen_res["launches_per_unet_eval"],
+           "generate_s_per_step": gen_res["s_per_step"], "nvidia_smi": smi}
+    emit(res)
+    if differ or not n_equal or not pipe.loaded_real_ckpt or fullkv != [24, 48]:
+        raise AssertionError(f"checkpoint: {res}")
+    require_launches("checkpoint", gen_res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
+                                             "fused_ff_layer": 33, "temporal_conv3": 88})
+    del pipe, lvdm_src, dust3r_src
+    torch.cuda.empty_cache()
+    return res, merge_sites(dust3r_sites, gen_sites["all"])
+
+
 def eval_geometry(scenes: list, render_args: tuple) -> dict:
     """What the eval phase's render sees: single_view_eval draws the cloud
     of an alignment of its own ([img0, img0], the last scene) along the
@@ -1161,7 +1294,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     wiring_sites = [run_wiring(gen)[1], run_wiring(gen, routes=True)[1],
-                    run_wiring(gen, routes=True, frames=LONG_FRAMES)[1]]
+                    run_wiring(gen, routes=True, frames=LONG_FRAMES)[1],
+                    run_wiring(gen, unet_flags=RELPOS_CAUSAL)[1]]
 
     flagship = get_model_config("viewcrafter_25")
     main_res, main_sites, eng = drive("main", flagship, gen, FLAGSHIP_STEPS, routes=False,
@@ -1250,11 +1384,13 @@ def main() -> int:
         mode_sites.append(sites_)
         dust3r_passes += [(phase, k, geo) for k, geo in passes]
 
+    _, checkpoint_sites = run_checkpoint(gen, smi)
+
     # every kernel is held against its twin at every shape any driven path
     # launched it with (the wiring runs included); GroupNorm also at one
     # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
     # path's launch count a kernel's row reports.
-    sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, *(
+    sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites, *(
         s["all"] for s in (main_sites, routes_sites, *pab_sites, long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 4, 1)] = 0
     emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})

@@ -247,6 +247,36 @@ def test_generate_wiring_with_routes_matches_cpu(gen, frames):
     assert (res["launches"]["temporal_attention_fused"] > 0) == (frames > 32)
 
 
+def test_relpos_causal_wiring_matches_cpu(gen):
+    """The small config with the relative-position bias and the causal mask,
+    card against CPU (chip_smoke.py's relpos_causal_wiring phase): no
+    temporal attention takes a kernel, the other main-path kernels do."""
+    from chip_smoke import MAIN_KERNELS, RELPOS_CAUSAL, run_wiring
+
+    res, _ = run_wiring(gen, unet_flags=RELPOS_CAUSAL)
+    assert res["launches"]["fused_temporal_layer"] == 0
+    assert res["launches"]["temporal_attention_fused"] == 0
+    assert all(res["launches"][k] > 0 for k in MAIN_KERNELS if k != "fused_temporal_layer")
+
+
+def test_native_ply_writer_on_the_cards_machine(gen, tmp_path):
+    """The native PLY writer builds with this machine's g++ and writes a
+    cloud made on the card with the Python loop's values, to `%.6g`."""
+    from viewcrafter_tpu_torch.utils import io as vio
+
+    pts = (torch.randn((1000, 3), generator=gen, device="cuda") * 100).cpu().numpy()
+    cols = torch.rand((1000, 3), generator=gen, device="cuda").cpu().numpy()
+    native, plain = str(tmp_path / "native.ply"), str(tmp_path / "plain.ply")
+    vio.save_pointcloud_ply(pts, cols, native)
+    vio.save_pointcloud_ply_plain(pts, cols, plain)
+    with open(native) as a, open(plain) as b:
+        got, want = a.read().splitlines(), b.read().splitlines()
+    assert got[:13] == want[:13] and len(got) == len(want) == 1013
+    for g, w in zip(got[13:], want[13:]):
+        g, w = g.split(), w.split()
+        assert g[:3] == ["%.6g" % float(x) for x in w[:3]] and g[3:] == w[3:]
+
+
 def test_geometry_wiring_matches_cpu(gen):
     """A small DUSt3R whose every attention takes the fullkv kernel, card
     against CPU, then aligner steps on both (chip_smoke.py's geometry_wiring

@@ -214,7 +214,7 @@ def _graph(n: int):
 def _aligned(n: int):
     g = _graph(n)
     ja = jga.GlobalAligner(jga.SceneGraph(**g), JaxAlignConfig(niter=5))
-    ta = tga.GlobalAligner(tga.SceneGraph(**g), AlignConfig(niter=5))
+    ta = tga.GlobalAligner(tga.SceneGraph(**g), AlignConfig(niter=5), device="cpu")
     jinit, tinit = ja.init_mst(), ta.init_mst()
     jp, jl = ja.optimize(jinit)
     tp_, tl = ta.optimize(tinit)

@@ -25,8 +25,10 @@ import viewcrafter_tpu_torch.ops.rasterize
 import viewcrafter_tpu_torch.ops.resize
 import viewcrafter_tpu_torch.ops.rope2d
 import viewcrafter_tpu_torch.pipeline
+import viewcrafter_tpu_torch.utils.checkpoint
 import viewcrafter_tpu_torch.utils.io
 import viewcrafter_tpu_torch.utils.metrics
+import viewcrafter_tpu_torch.utils.profiling
 import viewcrafter_tpu_torch.utils.viz
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "viewcrafter_tpu"))
@@ -59,12 +61,10 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
-    import dataclasses
+    # the causal mask and the relative-position bias are ported
+    # (tests/test_torch_relpos.py); multi-device sampling is not
+    from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
 
-    from viewcrafter_tpu_torch.config import get_model_config
-    from viewcrafter_tpu_torch.models.unet3d import UNet3D
-
-    base = get_model_config("viewcrafter_tiny").unet
-    for flag in ("use_causal_attention", "use_relative_position"):
-        with pytest.raises(NotImplementedError):
-            UNet3D(dataclasses.replace(base, **{flag: True}))
+    opts = InferenceOptions(model="viewcrafter_tiny", dust3r_model="dust3r_tiny", mesh_devices=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ViewCrafterPipeline(opts, init_models=False, device="cpu")

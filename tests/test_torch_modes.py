@@ -32,6 +32,7 @@ candidates, the views, the elevation and the files written equal.
 """
 
 import os
+import zlib
 
 import jax
 import numpy as np
@@ -40,7 +41,9 @@ from PIL import Image
 
 import torch_parity as tp
 from viewcrafter_tpu.pipeline import InferenceOptions as JaxOptions
+from viewcrafter_tpu.utils import tokenizer as jax_tokenizer
 from viewcrafter_tpu_torch.pipeline import InferenceOptions
+from viewcrafter_tpu_torch.utils import tokenizer as port_tokenizer
 
 FIXTURE = dict(model="viewcrafter_tiny", dust3r_model="dust3r_tiny", ddim_steps=2,
                video_length=7, dust3r_size=64, niter=5, batch_size=2, bg_trd=0.5,
@@ -145,6 +148,15 @@ def _run_port(p, jrec):
     return rec
 
 
+def _fixed_fallback_ids(text: str) -> list:
+    """The tokenizers' hash fallback with crc32 in place of Python's salted
+    `hash`: the same prompt ids in every process. With the salted ids the
+    modes' videos, and so the iterative modes' later scenes, change from one
+    process to the next, and at some salts both packages' later renders are
+    empty (random weights)."""
+    return [1000 + zlib.crc32(w.encode()) % 48000 for w in text.lower().split()]
+
+
 @pytest.fixture(scope="module")
 def pipelines(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("vc_modes")
@@ -152,7 +164,10 @@ def pipelines(tmp_path_factory):
     jp, tpipe = tp.pipelines_f32(JaxOptions(out_dir=str(tmp / "jax"), image_dir=photo, **FIXTURE),
                                  InferenceOptions(out_dir=str(tmp / "torch"), image_dir=photo,
                                                   **FIXTURE))
-    return jp, tpipe, {"photo": photo, "views": views}
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_tokenizer, port_tokenizer):
+            mp.setattr(mod, "_fallback_ids", _fixed_fallback_ids)
+        yield jp, tpipe, {"photo": photo, "views": views}
 
 
 def _configure(p, mode, inputs):

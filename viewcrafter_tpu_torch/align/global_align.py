@@ -39,6 +39,7 @@ from viewcrafter_tpu_torch.align.registration import rigid_points_registration, 
 from viewcrafter_tpu_torch.align.rotations import mat_to_pose_vec, pose_vec_to_mat
 from viewcrafter_tpu_torch.config import AlignConfig
 from viewcrafter_tpu_torch.geometry.transforms import geotrf, inv_se3
+from viewcrafter_tpu_torch.models.lvdm import resolve_device
 
 PARAM_NAMES = ("pw_poses", "im_poses", "im_depth", "im_focals", "im_pp")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.9, 1e-8  # base_opt.py's Adam(betas=(0.9, 0.9))
@@ -122,18 +123,21 @@ def _pts3d_from_depth_np(depths, focals, pps, poses):
 class GlobalAligner:
     """PointCloudOptimizer equivalent on one device. Usage:
 
-        aligner = GlobalAligner(scene_graph, AlignConfig(), device="cuda")
+        aligner = GlobalAligner(scene_graph, AlignConfig())
         params = aligner.init_mst()
         params, losses = aligner.optimize(params)
         scene = aligner.get_scene(params)
+
+    device=None is the card, and without one it raises
+    (`models.lvdm.resolve_device`); pass device="cpu" for the CPU.
     """
 
     def __init__(self, graph: SceneGraph, cfg: AlignConfig = AlignConfig(),
-                 base_scale: float = 0.5, device="cpu"):
+                 base_scale: float = 0.5, device=None):
         self.graph = graph
         self.cfg = cfg
         self.base_scale = base_scale
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         h, w = graph.imshape
         self.h, self.w = h, w
         a = h * w

@@ -15,9 +15,12 @@ copy of the JAX package's `cli.py`, with `--device` (default: the card).
       --mode single_view_1drc_iterative --d_theta -5 -5 --d_phi 30 30 \
       --d_r -0.2 -0.2 --d_x 0 0 --d_y 0 0
 
-Every mode of the reference runs. Without checkpoints the models hold
-seeded random weights (the output is untrained noise); loading the released
-checkpoints and multi-device sampling are not ported yet and raise.
+Every mode of the reference runs. The released checkpoints load from
+`--ckpt_path` and `--model_path` where those files exist, and then the
+prompt needs the CLIP BPE merges file (`$VIEWCRAFTER_BPE_PATH`, or
+`checkpoints/bpe_simple_vocab_16e6.txt.gz`); without checkpoints the models
+hold seeded random weights (the output is untrained noise). Multi-device
+sampling is not ported yet and raises.
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ mechanical walk over each flax tree:
   - any other leaf keeps its name.
 
 Input: numpy arrays (convert jax arrays with `np.asarray` first), one tree
-per submodel; a flax `{"params": ...}` wrapper is accepted. Loading the
-released torch checkpoints into the port is not done here.
+per submodel; a flax `{"params": ...}` wrapper is accepted. The released
+torch checkpoints load through `utils/checkpoint.py`.
 """
 
 from __future__ import annotations

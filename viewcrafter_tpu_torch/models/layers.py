@@ -152,13 +152,16 @@ def silu(x):
 
 def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every parameter outside the norm modules to `dtype`; norm
-    parameters stay float32. Conv weights are stored channels-last, the
-    layout of the activations, so cuDNN does not re-layout them per call."""
+    parameters stay float32, and so do those a module lists in its
+    `float32_params`. Conv weights are stored channels-last, the layout of
+    the activations, so cuDNN does not re-layout them per call."""
     for mod in module.modules():
         if isinstance(mod, (GroupNorm32, LayerNormF32)):
             continue
-        for p in mod.parameters(recurse=False):
-            p.data = p.data.to(dtype)
+        keep = getattr(mod, "float32_params", ())
+        for name, p in mod.named_parameters(recurse=False):
+            if name not in keep:
+                p.data = p.data.to(dtype)
         if isinstance(mod, Conv):
             mod.weight.data = mod.weight.data.contiguous(memory_format=torch.channels_last)
     return module

@@ -22,8 +22,13 @@ PAB-style attention reuse: `AttnCacheCtx` and the `attn_cache` /
 `collect_cache` arguments of `UNet3D.forward`, with the JAX package's site
 names.
 
-Not ported yet (they raise): the relative-position temporal bias and causal
-temporal attention.
+The two temporal-attention options of the reference (off in every shipped
+config): `use_relative_position`, a Shaw-style learned relative-position bias
+(two float32 (2*temporal_length+1, dim_head) tables per attention, named
+`rel_k_table` and `rel_v_table` as in the JAX package), and
+`use_causal_attention`, a lower-triangular mask over the frames. As in the
+JAX package, a temporal attention with either takes the plain path, not the
+layer kernel nor `temporal_attention_fused`.
 """
 
 from __future__ import annotations
@@ -195,45 +200,80 @@ class SpatialTransformer(nn.Module):
         return x + h.reshape(bt, hh, ww, c)
 
 
-def _temporal_attention(q, k, v):
+def _temporal_attention(q, k, v, mask=None, k2=None, v2=None):
     """Self-attention over the t axis of (B, T, S, H, D) tensors: the
     `temporal_attention_fused` kernel on a CUDA tensor whose shape passes
     the gate that sends the JAX package to its Pallas kernel on a TPU (no
-    mask, T <= 64, head dim 64 or 128), else plain ops. As in the JAX
-    package, the gate is asked at any T: a site of up to 32 frames gets here
-    only where the layer kernel's gate failed, which at the full-width
-    presets (25 frames, or 16) happens at no temporal site
-    (tests/test_torch_routes.py enumerates them), so their default path
-    launches this kernel nowhere."""
-    if q.is_cuda and _tattn.supports_fused(q.shape):
+    mask, no relative-position bias, T <= 64, head dim 64 or 128), else
+    plain ops. As in the JAX package, the gate is asked at any T: a site of
+    up to 32 frames gets here only where the layer kernel's gate failed,
+    which at the full-width presets (25 frames, or 16) happens at no
+    temporal site (tests/test_torch_routes.py enumerates them), so their
+    default path launches this kernel nowhere.
+
+    mask: (Tq, Tk) bool, True where a query may attend. k2 / v2: the
+    gathered relative-position tables (Tq, Tk, D), shared across batch,
+    pixels and heads: q.k2 adds to the logits, probs.v2 to the output
+    (reference attention.py:20-39,104-123)."""
+    if q.is_cuda and mask is None and k2 is None and _tattn.supports_fused(q.shape):
         return _tattn.temporal_attention_fused(q, k, v)
     d = q.shape[-1]
-    logits = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float()) * (d ** -0.5)
+    logits = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float())
+    if k2 is not None:
+        logits = logits + torch.einsum("bqshd,qkd->bshqk", q.float(), k2.to(q.dtype).float())
+    logits = logits * (d ** -0.5)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bshqk,bkshd->bqshd", probs, v).to(q.dtype)
+    if v2 is None:
+        return torch.einsum("bshqk,bkshd->bqshd", probs, v).to(q.dtype)
+    out = torch.einsum("bshqk,bkshd->bqshd", probs.float(), v.float())
+    out = out + torch.einsum("bshqk,qkd->bqshd", probs.float(), v2.to(q.dtype).float())
+    return out.to(q.dtype)
+
+
+def _gather_relative(table, tq: int, tk: int, max_rel: int):
+    """(2*max_rel+1, D) table -> (Tq, Tk, D): row clip(k - q) + max_rel."""
+    pos = torch.arange(max(tq, tk), device=table.device)
+    dist = pos[None, :tk] - pos[:tq, None]
+    return table[dist.clamp(-max_rel, max_rel) + max_rel]
 
 
 class TemporalSelfAttention(nn.Module):
     """Self-attention over T on (B, T, S, C) with CrossAttention's parameter
     names. `ln`: the preceding LayerNormF32, applied inside so that on the
     card the whole layer runs through the `fused_temporal_layer` kernels
-    where the JAX package's gate takes its Pallas kernel."""
+    where the JAX package's gate takes its Pallas kernel: never with a mask
+    or with `relative_position`, whose tables `rel_k_table` / `rel_v_table`
+    stay float32 under `cast_weights`."""
 
-    def __init__(self, heads: int, dim_head: int, query_dim: int):
+    float32_params = ("rel_k_table", "rel_v_table")
+
+    def __init__(self, heads: int, dim_head: int, query_dim: int,
+                 relative_position: bool = False, temporal_length: int = 0):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.query_dim = heads, dim_head, query_dim
+        self.relative_position, self.temporal_length = relative_position, temporal_length
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
+        if relative_position:
+            self.rel_k_table = nn.Parameter(torch.zeros(2 * temporal_length + 1, dim_head))
+            self.rel_v_table = nn.Parameter(torch.zeros(2 * temporal_length + 1, dim_head))
 
-    def forward(self, x, ln: Optional[LayerNormF32] = None):
+    def forward(self, x, ln: Optional[LayerNormF32] = None, mask=None):
         b, t, s, c = x.shape
         h, d = self.heads, self.dim_head
         inner = h * d
+        k2 = v2 = None
+        if self.relative_position:
+            k2 = _gather_relative(self.rel_k_table, t, t, self.temporal_length)
+            v2 = _gather_relative(self.rel_v_table, t, t, self.temporal_length)
         fuse = (
-            ln is not None and c == inner and self.query_dim == c and x.is_cuda
+            ln is not None and mask is None and k2 is None
+            and c == inner and self.query_dim == c and x.is_cuda
             and _tlayer.supports_fused_layer(x.shape, h, d, itemsize=x.element_size())
         )
         if fuse:
@@ -246,47 +286,58 @@ class TemporalSelfAttention(nn.Module):
         q = self.to_q(x).view(b, t, s, h, d)
         k = self.to_k(x).view(b, t, s, h, d)
         v = self.to_v(x).view(b, t, s, h, d)
-        return self.to_out(_temporal_attention(q, k, v).reshape(b, t, s, inner))
+        o = _temporal_attention(q, k, v, mask, k2=k2, v2=v2)
+        return self.to_out(o.reshape(b, t, s, inner))
 
 
 class TemporalTransformerBlock(nn.Module):
     """TransformerBlock twin for the (B,T,S,C) layout: attn1 and attn2 are
     both self-attention over T."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, relative_position: bool = False,
+                 temporal_length: int = 0):
         super().__init__()
         self.norm1 = LayerNormF32(dim)
-        self.attn1 = TemporalSelfAttention(heads, dim_head, dim)
+        self.attn1 = TemporalSelfAttention(heads, dim_head, dim, relative_position, temporal_length)
         self.norm2 = LayerNormF32(dim)
-        self.attn2 = TemporalSelfAttention(heads, dim_head, dim)
+        self.attn2 = TemporalSelfAttention(heads, dim_head, dim, relative_position, temporal_length)
         self.norm3 = LayerNormF32(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, cache: AttnCacheCtx = _NO_CACHE, site: str = ""):
-        x = x + cache.site("temporal", site + "/attn1", lambda: self.attn1(x, ln=self.norm1))
-        x = x + cache.site("temporal", site + "/attn2", lambda: self.attn2(x, ln=self.norm2))
+    def forward(self, x, mask=None, cache: AttnCacheCtx = _NO_CACHE, site: str = ""):
+        x = x + cache.site("temporal", site + "/attn1",
+                           lambda: self.attn1(x, ln=self.norm1, mask=mask))
+        x = x + cache.site("temporal", site + "/attn2",
+                           lambda: self.attn2(x, ln=self.norm2, mask=mask))
         return x + cache.site("ff", site + "/ff", lambda: self.ff(x, ln=self.norm3))
 
 
 class TemporalTransformer(nn.Module):
-    """Transformer over the t axis per pixel, in the (B, T, S, C) layout."""
+    """Transformer over the t axis per pixel, in the (B, T, S, C) layout;
+    `causal`: each frame attends to itself and the frames before it."""
 
-    def __init__(self, channels: int, heads: int, dim_head: int, depth: int):
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
+                 causal: bool = False, relative_position: bool = False,
+                 temporal_length: int = 0):
         super().__init__()
         inner = heads * dim_head
-        self.depth = depth
+        self.depth, self.causal = depth, causal
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, inner)
         for i in range(depth):
-            self.add_module(f"block_{i}", TemporalTransformerBlock(inner, heads, dim_head))
+            self.add_module(f"block_{i}", TemporalTransformerBlock(
+                inner, heads, dim_head, relative_position, temporal_length))
         self.proj_out = nn.Linear(inner, channels)
 
     def forward(self, x, cache: AttnCacheCtx = _NO_CACHE, site: str = ""):
         # x: (B, T, H, W, C); GroupNorm statistics span all frames
         b, t, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(b, t, hh * ww, c))
+        mask = None
+        if self.causal:
+            mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, cache=cache, site=f"{site}/block_{i}")
+            h = getattr(self, f"block_{i}")(h, mask=mask, cache=cache, site=f"{site}/block_{i}")
         h = self.proj_out(h)
         return x + h.reshape(b, t, hh, ww, c)
 
@@ -391,9 +442,6 @@ class UNet3D(nn.Module):
         super().__init__()
         if cross_attn_impl not in ("xla", "auto"):
             raise ValueError(f"unknown cross_attn_impl {cross_attn_impl!r}")
-        if cfg.use_causal_attention or cfg.use_relative_position:
-            raise NotImplementedError(
-                "causal temporal attention and the relative-position bias are not ported yet")
         self.cfg, self.dtype = cfg, dtype
         mc = cfg.model_channels
         ted = mc * 4
@@ -406,7 +454,10 @@ class UNet3D(nn.Module):
         self.in_conv = Conv(cfg.in_channels, mc, 3, padding=1)
 
         def temporal(ch, heads=None):
-            return TemporalTransformer(ch, heads or ch // nhc, nhc, cfg.transformer_depth)
+            return TemporalTransformer(ch, heads or ch // nhc, nhc, cfg.transformer_depth,
+                                       causal=cfg.use_causal_attention,
+                                       relative_position=cfg.use_relative_position,
+                                       temporal_length=cfg.temporal_length)
 
         def spatial(ch):
             return SpatialTransformer(ch, ch // nhc, nhc, cfg.transformer_depth,

@@ -25,9 +25,12 @@ Each pass runs
 
 Everything runs on the pipeline's device: with `device=None` that is the
 card, and without one the pipeline raises; the CPU only when asked for.
-Multi-device sampling and loading the released checkpoints are not ported
-yet and raise (see ROADMAP.md). Without checkpoints the models hold seeded
-random weights (`setup_models`), as the JAX package's dev mode does.
+Multi-device sampling is not ported yet and raises (see ROADMAP.md). The
+released checkpoints load where `ckpt_path` / `model_path` exist
+(`setup_models`, through `utils/checkpoint.py`); without them the models hold
+seeded random weights, as the JAX package's dev mode does. With a loaded
+diffusion checkpoint the prompt needs the CLIP BPE merges file: the
+tokenizer's hash fallback would corrupt the text conditioning, so it raises.
 
 Unlike the JAX package, which pads the encoder batch to 8 images and the
 pair batch to `batch_size` to keep its compiled programs static, the port
@@ -65,10 +68,16 @@ from viewcrafter_tpu_torch.geometry.transforms import (
 )
 from viewcrafter_tpu_torch.models.dust3r import Dust3rModel
 from viewcrafter_tpu_torch.models.layers import init_random_
-from viewcrafter_tpu_torch.models.lvdm import GenerateNoise, VideoDiffusionEngine, resolve_device
+from viewcrafter_tpu_torch.models.lvdm import (
+    SUBMODELS,
+    GenerateNoise,
+    VideoDiffusionEngine,
+    resolve_device,
+)
 from viewcrafter_tpu_torch.ops.rasterize import render_trajectory
 from viewcrafter_tpu_torch.ops.resize import resize_bilinear
 from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+from viewcrafter_tpu_torch.utils import checkpoint as ck
 from viewcrafter_tpu_torch.utils import io as vio
 from viewcrafter_tpu_torch.utils.tokenizer import tokenize
 
@@ -193,6 +202,7 @@ class ViewCrafterPipeline:
         with torch.device(self.device):
             self.dust3r = Dust3rModel(self.dust3r_cfg, dtype=dtype)
         self.dust3r.eval().requires_grad_(False)
+        self.loaded_real_ckpt = False
         if init_models:
             self.setup_models()
         # state per run
@@ -212,15 +222,29 @@ class ViewCrafterPipeline:
     # ------------------------------------------------------------------
 
     def setup_models(self) -> None:
-        """Seeded random weights (the dev mode: outputs are untrained noise).
-        A given, existing checkpoint path raises: loading the released
-        checkpoints is not ported yet."""
-        for path, what in ((self.opts.model_path, "DUSt3R"), (self.opts.ckpt_path, "diffusion")):
-            if path and os.path.exists(path):
-                raise not_ported(f"loading the released {what} checkpoint ({path})")
+        """The released checkpoints where their paths exist, as the JAX
+        package's `setup_models` loads them: each file translated to the
+        port's names, its shapes checked and loaded strictly
+        (`utils/checkpoint.py`); else seeded random weights (the dev mode:
+        outputs are untrained noise). Then the bf16 storage rounding."""
         g = torch.Generator(device=self.device).manual_seed(self.opts.seed)
-        init_random_(self.dust3r, g)
-        self.engine.init_params(seed=self.opts.seed + 1)
+        if self.opts.model_path and os.path.exists(self.opts.model_path):
+            raw = ck.load_torch_file(self.opts.model_path)
+            shapes = {k: v.shape for k, v in self.dust3r.state_dict().items()}
+            self.dust3r.load_state_dict(ck.dust3r_from_reference(raw, self.dust3r_cfg, shapes),
+                                        strict=True)
+            del raw
+        else:
+            init_random_(self.dust3r, g)
+        if self.opts.ckpt_path and os.path.exists(self.opts.ckpt_path):
+            raw = ck.load_torch_file(self.opts.ckpt_path)
+            shapes = {n: {k: v.shape for k, v in getattr(self.engine, n).state_dict().items()}
+                      for n in SUBMODELS}
+            self.engine.load_params(ck.lvdm_from_reference(raw, self.model_cfg, shapes))
+            self.loaded_real_ckpt = True
+            del raw
+        else:
+            self.engine.init_params(seed=self.opts.seed + 1)
         self._store_weights()
 
     def load_params(self, dust3r_state: dict, lvdm_state: dict) -> None:
@@ -233,7 +257,7 @@ class ViewCrafterPipeline:
     def _store_weights(self) -> None:
         if self.opts.weights_dtype == "bf16":
             round_to_bf16_(self.dust3r)
-            for name in ("unet", "vae", "clip_text", "clip_vision", "resampler"):
+            for name in SUBMODELS:
                 round_to_bf16_(getattr(self.engine, name))
 
     # ------------------------------------------------------------------
@@ -403,8 +427,11 @@ class ViewCrafterPipeline:
         videos = torch.as_tensor(np.asarray(frames01, np.float32) * 2.0 - 1.0,
                                  device=self.device)[None]
         prompt = opts.prompt if opts.text_input else ""
-        ids = torch.from_numpy(tokenize([prompt])).long()
-        uids = torch.from_numpy(tokenize([""])).long()
+        # a real checkpoint needs real CLIP BPE ids: without the merges file
+        # this raises rather than hashing the words
+        allow_fb = not self.loaded_real_ckpt
+        ids = torch.from_numpy(tokenize([prompt], allow_fallback=allow_fb)).long()
+        uids = torch.from_numpy(tokenize([""], allow_fallback=allow_fb)).long()
         guidance = GuidanceConfig(scale=opts.unconditional_guidance_scale,
                                   rescale=opts.guidance_rescale,
                                   cfg_img=opts.cfg_img if opts.multiple_cond_cfg else None,

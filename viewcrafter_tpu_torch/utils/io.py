@@ -9,7 +9,10 @@ the port needs none of them. Parity targets (the reference's):
   - save_video (fps 8 h264): utils/pvd_utils.py:38-48
   - the generated frame -> DUSt3R resize of the iterative modes:
     utils/pvd_utils.py get_input_dict
-  - ASCII PLY export with dummy normals: utils/pvd_utils.py:438-473
+  - ASCII PLY export with dummy normals: utils/pvd_utils.py:438-473, by the
+    native writer `csrc/ply_writer.cpp` (built with g++ on first use into
+    `_build/`, loaded with ctypes; a failed build raises), with the Python
+    loop `save_pointcloud_ply_plain` as its plain twin
 
 Where a writer finds neither imageio nor PIL, it writes the frames as one
 `.npy` array beside the asked-for path and returns that path: a file-format
@@ -18,9 +21,14 @@ fallback, nothing else.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
-from typing import List, Tuple
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -184,13 +192,77 @@ def save_image(img: np.ndarray, path: str) -> str:
     return path
 
 
+PLY_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ply_writer.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+_PLY_LOCK = threading.Lock()
+_ply_lib: Optional[ctypes.CDLL] = None
+
+
+def build_ply_writer() -> Path:
+    """Compile PLY_SOURCE with `g++ -O3 -shared -fPIC` into BUILD_DIR unless
+    a build at least as new as the source is there; returns the library's
+    path.
+    The library is written under a temporary name and renamed into place, so
+    processes building at once do not see each other's partial files. A
+    failed build raises with the compiler's output."""
+    src = PLY_SOURCE
+    out = BUILD_DIR / "libvc_ply_writer.so"
+    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, str(src)],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building the native PLY writer from {src} failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def ply_writer_lib() -> ctypes.CDLL:
+    """The native PLY writer, built on first use and loaded once."""
+    global _ply_lib
+    with _PLY_LOCK:
+        if _ply_lib is None:
+            lib = ctypes.CDLL(str(build_ply_writer()))
+            lib.vc_write_ply.restype = ctypes.c_int
+            lib.vc_write_ply.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                                         ctypes.POINTER(ctypes.c_ubyte), ctypes.c_long]
+            _ply_lib = lib
+        return _ply_lib
+
+
+def _ply_arrays(points, colors, path):
+    points = np.ascontiguousarray(np.asarray(points, np.float32).reshape(-1, 3))
+    colors = np.asarray(colors).reshape(-1, 3)
+    colors = np.ascontiguousarray(to_uint8(colors) if colors.size else colors.astype(np.uint8))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return points, colors
+
+
 def save_pointcloud_ply(points: np.ndarray, colors: np.ndarray, path: str) -> str:
     """ASCII PLY with dummy zero normals (pvd_utils.py:438-473 format),
-    written by the Python loop of the JAX package's fallback (the port does
-    not build its native writer)."""
-    points = np.asarray(points, np.float32).reshape(-1, 3)
-    colors = to_uint8(np.asarray(colors).reshape(-1, 3))
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    coordinates as `%.6g`, written by the native writer. Raises if the
+    writer does not build or the file cannot be written."""
+    points, colors = _ply_arrays(points, colors, path)
+    rc = ply_writer_lib().vc_write_ply(
+        os.fsencode(path), points.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        colors.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), len(points))
+    if rc != 0:
+        raise OSError(f"native PLY writer failed ({rc}) on {path}")
+    return path
+
+
+def save_pointcloud_ply_plain(points: np.ndarray, colors: np.ndarray, path: str) -> str:
+    """The native writer's plain twin: the Python loop (coordinates as
+    Python prints a float32, the same values to `%.6g`)."""
+    points, colors = _ply_arrays(points, colors, path)
     with open(path, "w") as f:
         f.write("ply\nformat ascii 1.0\n")
         f.write(f"element vertex {len(points)}\n")
