@@ -86,8 +86,31 @@ Phases, each printing JSON lines:
            steps) and one `engine.generate` of 2 DDIM steps with the main
            path's launches per UNet eval; file sizes, the seed / write / load
            seconds (`StageTimer`), peak memory
+  sharded_cfg_dp
+           multi-device sampling (`generate_staged(mesh=...)`, ranks started
+           by `parallel.mesh.spawn`): `viewcrafter_25` at full width, B = 1,
+           K = 2, default routes, 2 DDIM steps, first unsharded on this card
+           with batched CFG (the reference) and with sequential CFG (the
+           yardstick: the same math at other batch sizes); then the two CFG
+           branches over dp as 2 ranks sharing cuda:0 over gloo, then as 1
+           rank over NCCL through the same mesh code, and as 2 ranks on 2
+           cards over NCCL where the machine has them. Each rank builds the
+           seeded weights in turn (checked equal with one all_reduce of a
+           checksum) and loads the kernels this process built. Rank 0's video
+           against the reference: max and mean error within twice the
+           yardstick's plus a floor, the share of bit-equal values; a line
+           per rank with s/step, peak memory, the main-path launches per UNet
+           eval (those of the unsharded run, in every rank) and the
+           collectives' seconds per step
+  sharded_sp
+           the same for `viewcrafter_16` (16 frames) with its frames over sp
+           (dp 1 x sp 2, 2 gloo ranks on cuda:0): each temporal module
+           gathers the clip's frames through the host
+  sharded_wiring
+           the wiring config at dp 2 x sp 2, 4 gloo ranks on cuda:0, against
+           the CPU's float32 run at `run_wiring`'s tolerance
   kernels  each kernel against its plain torch twin at every input shape any
-           phase above launched it with (all eight kernels, all paths, the
+           phase above launched it with (the sharded ranks' shapes too) (all eight kernels, all paths, the
            wiring runs included), the two attention kernels once more near
            one-hot (q scaled by 8) and the temporal layer once more near
            one-hot (Wqkv scaled by 4): max_abs_err and rms_rel_err beside
@@ -130,6 +153,8 @@ GEOMETRY_WIRING_STEPS = 10
 PIPELINE_NITER, PIPELINE_STEPS = 300, 2
 CHECKPOINT_NITER = 10  # aligner steps of the checkpoint phase's DUSt3R run
 RELPOS_CAUSAL = {"use_relative_position": True, "use_causal_attention": True}
+SHARDED_STEPS, SHARDED_SEED = 2, 5  # the sharded phases' DDIM steps and input seed
+SPAWN_TIMEOUT = 600  # seconds for a sharded phase's ranks to finish
 EVAL_FRAMES = 6  # frames of the eval phase's clip (test/eval1 has 25)
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
 # the near one-hot sites of the attention kernels (main-path ds2 sites, the
@@ -1206,6 +1231,278 @@ def eval_geometry(scenes: list, render_args: tuple) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# multi-device sampling: ranks spawned from this process
+# --------------------------------------------------------------------------
+
+
+def sharded_inputs(eng, steps: int, seed: int):
+    """Frames, prompt ids and every draw of one sharded phase, made on the
+    card from `seed`: the same numbers in this process and in every rank."""
+    import torch
+
+    cfg = eng.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=g,
+                        device="cuda") * 2 - 1
+    return (frames, fixed_prompt_ids(6, "cuda"), fixed_prompt_ids(0, "cuda"),
+            eng.draw_noise(frames.shape, steps, g))
+
+
+def timed_generate(eng, inputs, steps: int, guidance, mesh=None) -> tuple:
+    """`generate_staged` on `inputs` with a stamp after every stage: (video,
+    stage seconds, peak memory, launches in all and per UNet eval of the
+    sampling steps, launch sites, and the seconds and bytes of the
+    collectives of the sampling steps, as seen by this rank)."""
+    import torch
+
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.parallel import mesh as pm
+
+    coll = {"s": 0.0, "bytes": 0}
+    gather = pm.all_gather
+
+    def timed_gather(x, group, dim=0):
+        if group is None:  # an axis of one rank: no collective
+            return gather(x, group, dim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(x, group, dim)
+        torch.cuda.synchronize()
+        coll["s"] += time.perf_counter() - t0
+        coll["bytes"] += out.numel() * out.element_size()
+        return out
+
+    stamps = []
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        stamps.append((name, time.perf_counter(), kernels.launch_counts(), dict(coll)))
+
+    frames, ids, uids, noise = inputs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    pm.all_gather = timed_gather
+    try:
+        t0 = time.perf_counter()
+        video = eng.generate_staged(frames, ids, uids, steps=steps, guidance=guidance,
+                                    chunk=steps, noise=noise, mesh=mesh, on_stage=on_stage)
+        torch.cuda.synchronize()
+    finally:
+        pm.all_gather = gather
+    times = [t0] + [s[1] for s in stamps]
+    step_s = [times[i + 1] - times[i] for i in range(1, 1 + steps)]
+    counts = kernels.launch_counts()
+    first, last = stamps[0], stamps[-2]  # after prepare, after the last step
+    res = {"prepare_s": times[1] - times[0], "step_s": step_s,
+           "s_per_step": statistics.median(step_s[1:] or step_s),
+           "decode_s": times[-1] - times[-2],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": counts,
+           "launches_per_unet_eval": {k: (last[2][k] - first[2][k]) / steps for k in counts},
+           "collective_s_per_step": (last[3]["s"] - first[3]["s"]) / steps,
+           "collective_gib_per_step": (last[3]["bytes"] - first[3]["bytes"]) / steps / 2 ** 30,
+           "collective_s_all": coll["s"], "sites": kernels.launch_sites()}
+    return video, res
+
+
+def sharded_rank(spec: dict) -> dict:
+    """Rank target of the sharded phases (`chip_smoke.spawn_phase`): load
+    the kernels the parent built, build the phase's engine (seeded weights,
+    or `state`), one rank at a time since a build in float32 peaks near
+    10 GiB at full width, check every rank holds the same weights, then run
+    `generate_staged` on the phase's mesh with the phase's inputs. Returns
+    this rank's numbers; rank 0 also returns the video."""
+    import torch
+    import torch.distributed as dist
+
+    from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, VideoDiffusionEngine
+    from viewcrafter_tpu_torch.ops.kernels import _lib
+    from viewcrafter_tpu_torch.parallel import mesh as pm
+
+    if not _lib.library_path().exists():
+        raise RuntimeError("the kernels are not built: the parent process builds them")
+    _lib.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pm.make_mesh(dp=spec["dp"], devices=spec["devices"])
+    device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    for r in range(pm.world_size()):
+        if pm.rank() == r:
+            eng = VideoDiffusionEngine(spec["cfg"], device=device)
+            if spec["state"] is None:
+                eng.init_params(seed=spec["weights_seed"])
+            else:
+                eng.load_params({n: {k: torch.from_numpy(v) for k, v in sd.items()}
+                                 for n, sd in spec["state"].items()})
+            torch.cuda.synchronize()
+        dist.barrier()
+    build_s = time.perf_counter() - t0
+    checksum = pm.assert_replicated(p for n in SUBMODELS for p in getattr(eng, n).parameters())
+    inputs = sharded_inputs(eng, spec["steps"], spec["seed"])
+    video, res = timed_generate(eng, inputs, spec["steps"], spec["guidance"], mesh)
+    return {"rank": pm.rank(), "device": str(device), "mesh": pm.mesh_shape(mesh),
+            "build_s": build_s, "weights_checksum": checksum,
+            "video_sum": float(video.double().sum()),
+            "video": video.cpu().numpy() if pm.rank() == 0 else None, **res}
+
+
+def compare_videos(got, ref, yard) -> dict:
+    """A sharded video against the unsharded one: max and mean error, each
+    held to twice the yardstick's (plus a floor, as `run_wiring` does), the
+    error RMS relative to the output's, the share of bit-equal values, and
+    the kernel check's rule (max error / (4 * 2^-8 of the largest output),
+    RMS / 2^-7) for reference."""
+    import numpy as np
+
+    diff = np.abs(got.astype(np.float64) - ref)
+    err, mean_err = float(diff.max()), float(diff.mean())
+    rms_rel = float(np.sqrt((diff ** 2).mean()) / np.sqrt((ref ** 2).mean()))
+    tol, mean_tol = 2 * yard[0] + 1e-2, 2 * yard[1] + 1e-3
+    return {"max_abs_err": err, "tol": tol, "mean_abs_err": mean_err, "mean_tol": mean_tol,
+            "rms_rel_err": rms_rel, "bit_equal_share": float((got == ref).mean()),
+            "kernel_rule_max_ratio": err / (4 * 2.0 ** -8 * float(np.abs(ref).max())),
+            "kernel_rule_rms_ratio": rms_rel / 2.0 ** -7,
+            "ok": err <= tol and mean_err <= mean_tol}
+
+
+def spawn_phase(phase: str, spec: dict, world: int, backend: str, devices: list,
+                ref, yard, expect_per_eval, sequential=None) -> tuple:
+    """One sharded run of `phase`: `world` ranks on `devices` over `backend`,
+    rank 0's video against the unsharded `ref` (tolerance from `yard`), the
+    same video on every rank, and every main-path kernel launched in every
+    rank (`expect_per_eval`: the main path's launches per UNet eval, or None
+    for at least one). `sequential`, if given, the unsharded sequential-CFG
+    video: the share of values equal to it is reported too. Emits a line per
+    rank and one for the run; returns (the run's line, the ranks' launch
+    sites)."""
+    import torch
+
+    from viewcrafter_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    ranks = pm.spawn(sharded_rank, world, backend, devices=devices,
+                     args=(dict(spec, devices=devices),), timeout=SPAWN_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for r in ranks:
+        line = {k: v for k, v in r.items() if k not in ("video", "sites")}
+        emit({"phase": f"{phase}_rank", "backend": backend, "world": world, **line})
+        for name in MAIN_KERNELS:
+            n = r["launches_per_unet_eval"][name]
+            if n == 0 or (expect_per_eval is not None and n != expect_per_eval[name]):
+                raise AssertionError(f"{phase} ({backend}, rank {r['rank']}): {name} launched "
+                                     f"{n} times per UNet eval, expected {expect_per_eval}")
+    if len({r["video_sum"] for r in ranks}) != 1:
+        raise AssertionError(f"{phase}: the ranks returned other videos: "
+                             f"{[r['video_sum'] for r in ranks]}")
+    got = ranks[0]["video"]
+    res = {"phase": phase, "backend": backend, "world": world, "devices": devices,
+           "mesh": ranks[0]["mesh"], "shape": list(got.shape),
+           "finite": bool(torch.isfinite(torch.from_numpy(got)).all()),
+           **compare_videos(got, ref, yard),
+           "bit_equal_share_vs_sequential": (None if sequential is None
+                                             else float((got == sequential).mean())),
+           "s_per_step": [r["s_per_step"] for r in ranks],
+           "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+           "collective_s_per_step": [r["collective_s_per_step"] for r in ranks],
+           "launches_per_unet_eval": [{k: r["launches_per_unet_eval"][k] for k in MAIN_KERNELS}
+                                      for r in ranks],
+           "spawn_wall_s": wall_s}
+    emit(res)
+    if not (res["ok"] and res["finite"] and list(got.shape) == list(ref.shape)):
+        raise AssertionError(f"{phase} ({backend}, {world} ranks): {res}")
+    return res, [r["sites"] for r in ranks]
+
+
+def run_sharded(phase: str, cfg, dp: int, world: int, smi: str, nccl: bool = False) -> list:
+    """A sharded phase at full width: the unsharded `generate_staged` on
+    this card (batched CFG: the reference; sequential CFG, the same math at
+    other batch sizes: the yardstick of rounding) with the same seeded
+    weights and inputs, then `world` ranks on cuda:0 over gloo with the mesh
+    make_mesh(world, dp); with `nccl`, the same through one NCCL rank, and
+    across two cards over NCCL where the machine has two. Returns the ranks'
+    launch sites."""
+    import numpy as np
+    import torch
+
+    from viewcrafter_tpu_torch.models.lvdm import VideoDiffusionEngine
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+
+    eng = VideoDiffusionEngine(cfg)
+    eng.init_params(seed=0)
+    inputs = sharded_inputs(eng, SHARDED_STEPS, SHARDED_SEED)
+    ref, ref_res = timed_generate(eng, inputs, SHARDED_STEPS, GuidanceConfig())
+    seq, seq_res = timed_generate(eng, inputs, SHARDED_STEPS, GuidanceConfig(sequential=True))
+    ref, seq = ref.double().cpu().numpy(), seq.cpu().numpy()
+    diff = np.abs(seq - ref)
+    yard = (float(diff.max()), float(diff.mean()))
+    emit({"phase": f"{phase}_unsharded", "config": cfg.name,
+          "frames": list(inputs[0].shape), "steps": SHARDED_STEPS,
+          "s_per_step": ref_res["s_per_step"], "sequential_s_per_step": seq_res["s_per_step"],
+          "peak_mem_gib": ref_res["peak_mem_gib"],
+          "sequential_peak_mem_gib": seq_res["peak_mem_gib"],
+          "launches_per_unet_eval": ref_res["launches_per_unet_eval"],
+          "sequential_vs_batched": {"max_abs_err": yard[0], "mean_abs_err": yard[1],
+                                    "bit_equal_share": float((seq == ref).mean())},
+          "nvidia_smi": smi})
+    expect = {k: ref_res["launches_per_unet_eval"][k] for k in MAIN_KERNELS}
+    del eng, inputs
+    torch.cuda.empty_cache()
+    spec = dict(cfg=cfg, state=None, weights_seed=0, seed=SHARDED_SEED, steps=SHARDED_STEPS,
+                guidance=GuidanceConfig(), dp=dp)
+    sites = []
+    runs = [(world, "gloo", ["cuda:0"] * world)]
+    if nccl:
+        runs.append((1, "nccl", ["cuda:0"]))
+        if torch.cuda.device_count() >= world:
+            runs.append((world, "nccl", [f"cuda:{i}" for i in range(world)]))
+    for n, backend, devices in runs:
+        # one rank holds the whole mesh: dp 1
+        _, s = spawn_phase(phase, dict(spec, dp=dp if n == world else 1), n, backend, devices,
+                           ref, yard, expect, seq)
+        sites += s
+    return sites
+
+
+def run_sharded_wiring(gen) -> list:
+    """The wiring config (every gate takes the kernels) at dp 2 x sp 2: 4
+    gloo ranks on cuda:0 (one sample, so its two CFG branches over dp and
+    its 8 frames over sp), against the CPU's float32 run at `run_wiring`'s
+    tolerance (twice the CPU bf16 run's own distance, plus a floor). Returns
+    the ranks' launch sites."""
+    import torch
+
+    from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDiffusionEngine
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+
+    cfg = wiring_config(8)
+    cuda = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cuda")
+    cuda.init_params(seed=1)
+    state = {n: {k: v.float().cpu() for k, v in getattr(cuda, n).state_dict().items()}
+             for n in SUBMODELS}
+    frames, ids, uids, noise = sharded_inputs(cuda, SHARDED_STEPS, SHARDED_SEED)
+    cpu_in = (frames.cpu(), ids.cpu(), uids.cpu(),
+              GenerateNoise(*(t.cpu() for t in (noise.x_T, noise.steps, noise.posterior))))
+    refs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = VideoDiffusionEngine(cfg, dtype=dtype, device="cpu")
+        ref.load_params(state)
+        refs[dtype] = ref.generate_staged(*cpu_in[:3], steps=SHARDED_STEPS,
+                                          guidance=GuidanceConfig(), noise=cpu_in[3]).double()
+    o32, o16 = refs[torch.float32].numpy(), refs[torch.bfloat16].numpy()
+    yard = (float(abs(o16 - o32).max()), float(abs(o16 - o32).mean()))
+    del cuda
+    torch.cuda.empty_cache()
+    spec = dict(cfg=cfg, state={n: {k: v.numpy() for k, v in sd.items()}
+                                for n, sd in state.items()},
+                seed=SHARDED_SEED, steps=SHARDED_STEPS, guidance=GuidanceConfig(), dp=2)
+    _, sites = spawn_phase("sharded_wiring", spec, 4, "gloo", ["cuda:0"] * 4, o32, yard, None)
+    return sites
+
+
 def wgmma_kernel_resources(log: str) -> list:
     """ptxas's registers and spill bytes for each instance of the kernels in
     WGMMA_FUNCTIONS, read from the `-Xptxas -v` build log."""
@@ -1386,12 +1683,21 @@ def main() -> int:
 
     _, checkpoint_sites = run_checkpoint(gen, smi)
 
+    # multi-device sampling: ranks spawned from here, each phase after the
+    # models before it are freed
+    torch.cuda.empty_cache()
+    sharded_sites = run_sharded("sharded_cfg_dp", flagship, dp=2, world=2, smi=smi, nccl=True)
+    sharded_sites += run_sharded("sharded_sp", get_model_config("viewcrafter_16"), dp=1,
+                                 world=2, smi=smi)
+    sharded_sites += run_sharded_wiring(gen)
+
     # every kernel is held against its twin at every shape any driven path
     # launched it with (the wiring runs included); GroupNorm also at one
     # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
     # path's launch count a kernel's row reports.
-    sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites, *(
-        s["all"] for s in (main_sites, routes_sites, *pab_sites, long_sites, op_sites)))
+    sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites,
+                        *sharded_sites, *(s["all"] for s in (main_sites, routes_sites, *pab_sites,
+                                                             long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 4, 1)] = 0
     emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})
     path_res = {"main": main_res, "routes": routes_res, "long": long_res, "op": op_res}

@@ -259,6 +259,18 @@ def test_relpos_causal_wiring_matches_cpu(gen):
     assert all(res["launches"][k] > 0 for k in MAIN_KERNELS if k != "fused_temporal_layer")
 
 
+def test_sharded_cfg_dp_wiring_matches_unsharded(gen):
+    """Multi-device sampling on the card: the wiring config with its two CFG
+    branches over dp as 2 gloo ranks sharing cuda:0 (chip_smoke.py's sharded
+    phases), against the unsharded run on the card within twice the
+    sequential-vs-batched CFG distance plus a floor; every main-path kernel
+    launched in both ranks, the same video on both."""
+    from chip_smoke import run_sharded, wiring_config
+
+    sites = run_sharded("sharded_wiring_cfg_dp", wiring_config(8), dp=2, world=2, smi="")
+    assert len(sites) == 2 and all(s["fullkv_attention"] for s in sites)
+
+
 def test_native_ply_writer_on_the_cards_machine(gen, tmp_path):
     """The native PLY writer builds with this machine's g++ and writes a
     cloud made on the card with the Python loop's values, to `%.6g`."""

@@ -10,6 +10,7 @@ import torch
 _PROBE = """
 import sys
 import viewcrafter_tpu_torch
+import viewcrafter_tpu_torch._dryrun
 import viewcrafter_tpu_torch.align.global_align
 import viewcrafter_tpu_torch.align.pairs
 import viewcrafter_tpu_torch.align.rotations
@@ -24,6 +25,8 @@ import viewcrafter_tpu_torch.ops.kernels
 import viewcrafter_tpu_torch.ops.rasterize
 import viewcrafter_tpu_torch.ops.resize
 import viewcrafter_tpu_torch.ops.rope2d
+import viewcrafter_tpu_torch.parallel
+import viewcrafter_tpu_torch.parallel.mesh
 import viewcrafter_tpu_torch.pipeline
 import viewcrafter_tpu_torch.utils.checkpoint
 import viewcrafter_tpu_torch.utils.io
@@ -61,10 +64,12 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
-    # the causal mask and the relative-position bias are ported
-    # (tests/test_torch_relpos.py); multi-device sampling is not
+    # the causal mask, the relative-position bias (tests/test_torch_relpos.py)
+    # and multi-device sampling over dp and sp (tests/test_torch_parallel.py)
+    # are ported; tensor parallelism is not
     from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
 
-    opts = InferenceOptions(model="viewcrafter_tiny", dust3r_model="dust3r_tiny", mesh_devices=2)
+    opts = InferenceOptions(model="viewcrafter_tiny", dust3r_model="dust3r_tiny", mesh_devices=2,
+                            mesh_tp=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ViewCrafterPipeline(opts, init_models=False, device="cpu")

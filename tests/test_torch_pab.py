@@ -292,7 +292,17 @@ def test_generate_staged_reuse_differs_from_exact_sampling(setup):
 def test_unported_staged_options_raise(setup):
     _, _, teng, _, _, frames, ids, uids = setup
     args = (torch.from_numpy(frames), torch.from_numpy(ids).long(), torch.from_numpy(uids).long())
+    # sharding over dp and sp is ported (tests/test_torch_parallel.py);
+    # tensor parallelism is not: no tp mesh is built, and generate_staged
+    # refuses one (a stand-in with the mesh's two attributes)
+    from types import SimpleNamespace
+
+    from viewcrafter_tpu_torch.parallel.mesh import make_mesh
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        teng.generate_staged(*args, steps=2, mesh=object())
+        make_mesh(2, dp=1, tp=2)
+    tp_mesh = SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=(1, 1, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        teng.generate_staged(*args, steps=2, mesh=tp_mesh)
     with pytest.raises(KeyError):
         teng.generate_staged(*args, steps=2, attn_reuse_interval=2, attn_reuse_dtype="f4")

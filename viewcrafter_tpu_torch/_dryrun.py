@@ -1,0 +1,180 @@
+"""Multi-device dry run of the port on the CPU:
+
+    python -m viewcrafter_tpu_torch._dryrun N
+
+The port of the inference half of the JAX package's `_dryrun.py`: N gloo
+ranks on the CPU (`parallel.mesh.spawn`), each building `viewcrafter_tiny`
+in float32 from one seed (checked equal on every rank with one all_reduce of
+a checksum), run the sharded `generate_staged` (2 DDIM steps, K = 2 CFG),
+and rank 0 holds each sharded video against its own single-device run at
+the JAX package's bound, atol 2e-5:
+  1. sample dp: batch = dp on `make_mesh(N)` (dp 2 x sp N/2 for an even N);
+  2. CFG-branch dp: batch 1 on the same mesh, its K = 2 guidance branches
+     over dp;
+  3. frame sp alone: batch 1 on `make_mesh(N, dp=1)`, frames over all N
+     ranks.
+Frames are padded up to a multiple of the meshes' sp, as in the JAX dry run,
+with at least two frames a rank. The ranks run MKL in its batch-invariant
+mode (`batch_invariant_cpu`), and rank 0 computes the single-device run in
+its own process with the same setting.
+The JAX dry run's training step and its tensor-parallel check wait for their
+slices of the port (ROADMAP.md).
+
+`generate_on_mesh` and `diffuse_on_mesh` are also the rank targets of
+tests/test_torch_parallel.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+from viewcrafter_tpu_torch.config import ModelConfig, get_model_config
+from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDiffusionEngine
+from viewcrafter_tpu_torch.parallel import mesh as pm
+from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+
+ATOL = 2e-5  # the JAX dry run's bound, float32 on the CPU
+STEPS = 2
+SEED = 7
+THREADS = 2  # torch threads a rank: the ranks share the machine's cores
+
+
+def engine_on_rank(cfg: ModelConfig, state: Optional[dict]) -> VideoDiffusionEngine:
+    """The engine every rank builds, on the CPU in float32: `state`
+    ({submodel: {name: numpy}}) if given, else seeded weights; raises unless
+    all ranks hold the same."""
+    eng = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu")
+    if state is None:
+        eng.init_params(seed=0)
+    else:
+        eng.load_params({n: {k: torch.from_numpy(v) for k, v in state[n].items()}
+                         for n in SUBMODELS})
+    pm.assert_replicated(p for n in SUBMODELS for p in getattr(eng, n).parameters())
+    return eng
+
+
+def batch_invariant_cpu() -> None:
+    """Put MKL in its strict conditional-reproducibility mode, under which a
+    product's rows do not depend on how many rows ride with it (MKL reads the
+    setting at its first product, so call this before any). A sharded run
+    computes smaller batches on each rank than the single-device run; with
+    MKL's default kernels the two differ by up to 3.3e-5 after 2 steps of
+    viewcrafter_tiny in float32 (rounding amplified by CFG), and with this
+    they agree to the bit while each rank holds two frames or more (oneDNN
+    convolves a batch of one image with another algorithm: at one frame per
+    rank the gap was 2.1e-5). For rank processes (`generate_on_mesh`): it
+    sets the process's environment."""
+    os.environ["MKL_CBWR"] = "AVX2,STRICT"
+
+
+def generate_on_mesh(cfg: ModelConfig, state: Optional[dict], runs: list) -> list:
+    """Rank target: build the engine on the CPU in float32 (`engine_on_rank`)
+    with batch-invariant kernels (`batch_invariant_cpu`) and, for each run
+    (frames, ids, uids, noise, generate kwargs, mesh kwargs), the sharded
+    `generate_staged` on `make_mesh(**mesh kwargs)` over CPU ranks. `noise`:
+    the three draws' numpy arrays (x_T, steps, posterior), or None to draw
+    from a generator seeded with SEED. Returns [(video, single-device video
+    or None)] as numpy: the single-device run, with the same weights and
+    draws in the same process, on rank 0."""
+    batch_invariant_cpu()
+    torch.set_num_threads(THREADS)
+    eng = engine_on_rank(cfg, state)
+    out = []
+    for frames, ids, uids, noise, kwargs, mesh_kw in runs:
+        mesh = pm.make_mesh(devices=["cpu"] * pm.world_size(), **mesh_kw)
+        args = [torch.from_numpy(a) for a in (frames, ids, uids)]
+
+        def run(mesh):
+            noise_t = None if noise is None else GenerateNoise(*map(torch.from_numpy, noise))
+            return eng.generate_staged(*args, mesh=mesh, noise=noise_t,
+                                       generator=torch.Generator().manual_seed(SEED),
+                                       **kwargs).numpy()
+
+        video = run(mesh)
+        if frames.shape[0] % pm.mesh_shape(mesh)["dp"] == 0:  # the helpers' round trip
+            v = torch.from_numpy(video)
+            if not torch.equal(pm.gather_video_batch(pm.shard_video_batch(v, mesh), mesh), v):
+                raise AssertionError("gather_video_batch(shard_video_batch(x)) != x")
+        out.append((video, run(None) if pm.rank() == 0 else None))
+    return out
+
+
+def diffuse_on_mesh(opts, state: dict, frames01, noise) -> tuple:
+    """Rank target: `ViewCrafterPipeline.run_diffusion` on a pipeline of
+    `opts` (mesh_devices = the world) on the CPU in float32 whose diffusion
+    engine holds `state`; rank 0 hands in the guidance frames, the others
+    None. `noise`: the three draws' numpy arrays of the sharded call, or
+    None. Returns (video, the files in opts.save_dir)."""
+    from viewcrafter_tpu_torch.pipeline import ViewCrafterPipeline
+
+    batch_invariant_cpu()
+    torch.set_num_threads(THREADS)
+    pipe = ViewCrafterPipeline(opts, init_models=False, device="cpu", dtype=torch.float32)
+    pipe.engine.load_params({n: {k: torch.from_numpy(v) for k, v in state[n].items()}
+                             for n in SUBMODELS})
+    if pm.rank() == 0:
+        os.makedirs(opts.save_dir, exist_ok=True)
+    noise_t = None if noise is None else GenerateNoise(*map(torch.from_numpy, noise))
+    video = pipe.run_diffusion(frames01 if pm.rank() == 0 else None, noise=noise_t)
+    files = sorted(os.listdir(opts.save_dir)) if os.path.isdir(opts.save_dir) else []
+    return video, files
+
+
+def dryrun_runs(n: int, cfg: ModelConfig):
+    """(config with frames padded to every mesh's sp, the three runs)."""
+    dp = 2 if n % 2 == 0 and n > 1 else 1
+    # a multiple of both meshes' sp, two frames a rank or more (batch_invariant_cpu)
+    t = -(-max(cfg.video_length, 2 * n) // n) * n
+    cfg = dataclasses.replace(cfg, video_length=t)
+    rng = np.random.default_rng(SEED)
+
+    def inputs(b):
+        frames = rng.uniform(-1, 1, (b, t, cfg.height, cfg.width, 3)).astype(np.float32)
+        ids = np.zeros((b, 77), np.int64)
+        ids[:, :4] = [49406, 1000, 2000, 49407]
+        return frames, ids, np.zeros((b, 77), np.int64)
+
+    kwargs = dict(steps=STEPS, guidance=GuidanceConfig(scale=7.5), fs=10, chunk=1)
+    runs = {"sample_dp": (*inputs(dp), None, kwargs, {}),
+            "cfg_branch_dp": (*inputs(1), None, kwargs, {}),
+            "frame_sp": (*inputs(1), None, kwargs, {"dp": 1})}
+    return cfg, runs
+
+
+def inference_dryrun(n: int, timeout: float = 600.0) -> dict:
+    """The three sharded runs on n gloo CPU ranks, each held against the
+    single-device run at ATOL; returns {run: max abs error}."""
+    cfg, runs = dryrun_runs(n, get_model_config("viewcrafter_tiny"))
+    results = pm.spawn(generate_on_mesh, n, "gloo", devices=["cpu"] * n,
+                       args=(cfg, None, list(runs.values())), timeout=timeout)
+    errs = {}
+    for j, name in enumerate(runs):
+        got, ref = results[0][j]
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: sharded video {got.shape}, finite "
+                                 f"{np.isfinite(got).all()}")
+        for r in range(1, n):
+            if not np.array_equal(results[r][j][0], got):
+                raise AssertionError(f"{name}: rank {r} returned another video than rank 0")
+        errs[name] = float(np.abs(got - ref).max())
+        if not errs[name] <= ATOL:
+            raise AssertionError(f"{name}: sharded generation diverges from single-device: "
+                                 f"max abs error {errs[name]} > {ATOL}")
+    return errs
+
+
+def main(n: int) -> None:
+    errs = inference_dryrun(n)
+    print(f"sharded inference ok on {n} gloo CPU ranks (sample dp, CFG-branch dp and frame "
+          f"sp against single-device, atol {ATOL}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]) if len(sys.argv) > 1 else 4)

@@ -19,8 +19,17 @@ Every mode of the reference runs. The released checkpoints load from
 `--ckpt_path` and `--model_path` where those files exist, and then the
 prompt needs the CLIP BPE merges file (`$VIEWCRAFTER_BPE_PATH`, or
 `checkpoints/bpe_simple_vocab_16e6.txt.gz`); without checkpoints the models
-hold seeded random weights (the output is untrained noise). Multi-device
-sampling is not ported yet and raises.
+hold seeded random weights (the output is untrained noise).
+
+Multi-device sampling, one process per card:
+
+  torchrun --nproc_per_node 2 -m viewcrafter_tpu_torch.cli \
+      --image_dir test/images/fruit.png --mode single_view_target --mesh_devices 2
+
+Under torchrun (WORLD_SIZE > 1) the CLI joins the process group over
+`--dist_backend` (nccl, one card per rank; gloo for the CPU or for ranks that
+share a card) before it builds the pipeline. Rank 0 runs the geometry and
+writes every artifact. `--mesh_tp` > 1 (tensor parallelism) is not ported.
 """
 
 from __future__ import annotations
@@ -102,9 +111,13 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights_dtype", type=str, default="bf16", choices=["bf16", "fp32"],
                    help="inference weight storage dtype")
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help=">1: multi-device sampling (not ported; raises)")
+                   help=">1: shard n_samples (or a single sample's CFG branches) over that "
+                        "many ranks; run under torchrun --nproc_per_node N")
     p.add_argument("--mesh_tp", type=int, default=1,
-                   help="tensor-parallel width (not ported)")
+                   help="tensor-parallel width (not ported; > 1 raises)")
+    p.add_argument("--dist_backend", type=str, default="nccl", choices=["nccl", "gloo"],
+                   help="the process group's backend under torchrun: nccl (one card per "
+                        "rank) or gloo (the CPU, or ranks that share a card)")
     # dust3r
     p.add_argument("--model_path", type=str,
                    default="./checkpoints/DUSt3R_ViTLarge_BaseDecoder_512_dpt.pth")
@@ -191,11 +204,22 @@ def main(argv=None):
         args.exp_name = f"{prefix}_{os.path.splitext(os.path.basename(args.image_dir.rstrip('/')))[0]}"
     opts = opts_from_args(args)
 
+    import torch.distributed as dist
+
+    from viewcrafter_tpu_torch.parallel import mesh as pm
     from viewcrafter_tpu_torch.pipeline import ViewCrafterPipeline
 
-    pipeline = ViewCrafterPipeline(opts, device=args.device)
-    pipeline.run()
-    print(f"done; artifacts in {opts.save_dir}")
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if distributed:
+        pm.init_distributed(args.dist_backend, args.device or pm.rank_device())
+    try:
+        pipeline = ViewCrafterPipeline(opts, device=args.device)
+        pipeline.run()
+        if pipeline.rank == 0:
+            print(f"done; artifacts in {opts.save_dir}")
+    finally:
+        if distributed:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ The port of the JAX package's models/lvdm.py `VideoDiffusionEngine`:
   3. DDIM with v-prediction and batched (or sequential) CFG over UNet3D;
   4. VAE-decode the sampled latents one frame at a time.
 `generate_staged` is the same pipeline with the sampling cut into windows
-and, with `attn_reuse_interval` > 1, PAB-style attention reuse.
+and, with `attn_reuse_interval` > 1, PAB-style attention reuse, and with a
+`mesh` sharded over several devices (samples or CFG branches over "dp",
+frames over "sp"; `parallel/mesh.py`).
 
 The engine runs on the card unless the caller asks for the CPU: with
 `device=None` and no CUDA device it raises. Randomness comes from an explicit
@@ -29,6 +31,13 @@ from viewcrafter_tpu_torch.models.resampler import Resampler
 from viewcrafter_tpu_torch.models.unet3d import UNet3D
 from viewcrafter_tpu_torch.models.vae import AutoencoderKL
 from viewcrafter_tpu_torch.ops.schedule import DDIMSchedule, DiffusionSchedule
+from viewcrafter_tpu_torch.parallel.mesh import (
+    NO_AXIS,
+    Axis,
+    axis,
+    gather_video_batch,
+    mesh_shape,
+)
 from viewcrafter_tpu_torch.sampling.ddim import (
     GuidanceConfig,
     ddim_sample_window,
@@ -128,18 +137,21 @@ class VideoDiffusionEngine:
     def encode_frames(self, frames, posterior_noise=None):
         """Per-frame VAE encode: (B, T, H, W, 3) -> (B, T, h, w, z) * scale.
         posterior_noise (B, T, h, w, z): standard-normal draws of each frame's
-        posterior sample; None takes the mode."""
-        zs = []
-        for t in range(frames.shape[1]):
-            eps = None if posterior_noise is None else posterior_noise[:, t]
-            zs.append(self.vae.encode(frames[:, t], eps))
-        return torch.stack(zs, dim=1) * self.scale_factor
+        posterior sample; None takes the mode. One image per call, so that a
+        frame's latent does not depend on the batch it came in (a sharded
+        run encodes other batches than a single-device one)."""
+        zs = [[self.vae.encode(frames[i:i + 1, t], None if posterior_noise is None
+                               else posterior_noise[i:i + 1, t])
+               for t in range(frames.shape[1])] for i in range(frames.shape[0])]
+        return torch.cat([torch.stack(z, dim=1) for z in zs]) * self.scale_factor
 
     @torch.no_grad()
     def decode_latents(self, z):
-        """Per-frame VAE decode: (B, T, h, w, z) -> (B, T, H, W, 3)."""
-        return torch.stack(
-            [self.vae.decode(z[:, t] / self.scale_factor) for t in range(z.shape[1])], dim=1)
+        """Per-frame VAE decode: (B, T, h, w, z) -> (B, T, H, W, 3), one
+        image per call (see `encode_frames`)."""
+        return torch.cat([torch.stack([self.vae.decode(z[i:i + 1, t] / self.scale_factor)
+                                       for t in range(z.shape[1])], dim=1)
+                          for i in range(z.shape[0])])
 
     @torch.no_grad()
     def image_context(self, image):
@@ -171,7 +183,8 @@ class VideoDiffusionEngine:
 
     def _denoise_fn(self, z_cond, contexts, fs_val: float, guidance: GuidanceConfig,
                     cache_kinds=("spatial", "cross", "temporal"), cache_sites: tuple = (),
-                    cache_dtype: str = "bf16"):
+                    cache_dtype: str = "bf16", branch_axis: Axis = NO_AXIS,
+                    frame_axis: Axis = NO_AXIS):
         """Returns (denoise, denoise_full, denoise_reuse) over the K stacked
         CFG branches:
           denoise(x_k, t) -> v                          (baseline)
@@ -188,63 +201,81 @@ class VideoDiffusionEngine:
         prefixes (e.g. ("down_0", "up_0", "init_attn")): only matching sites
         stay in the cache, the rest are recomputed every step (a read miss
         falls through to the computation). cache_dtype: "bf16" stores the
-        module dtype, "f8" torch.float8_e4m3fn."""
+        module dtype, "f8" torch.float8_e4m3fn.
+
+        branch_axis: CFG-branch data parallelism for a batch that does not
+        divide over "dp" (the JAX package's `branch_mesh`): this rank
+        evaluates its block of the K*B branch rows, without the shared-prefix
+        dedup (each rank computes its own rows' prefix), and v is gathered
+        over the axis before the CFG combine, the path's one collective per
+        step. Sequential CFG then runs this rank's rows B at a time, and the
+        cache holds this rank's rows only. frame_axis: the "sp" axis when
+        z_cond holds this rank's block of frames (UNet3D's `frames`)."""
         k = guidance.num_branches
         b = z_cond.shape[0]
         store_dtype = CACHE_DTYPES[cache_dtype]
-        fs_batch = torch.full((k * b,), fs_val, dtype=torch.float32, device=z_cond.device)
+        rows = branch_axis.block(k * b)
+        n_rows = rows.stop - rows.start
+        prefix = k if branch_axis.size == 1 else 1
+        ctx_rows = contexts.reshape((k * b,) + contexts.shape[2:])[rows]
+        z_rows = z_cond.repeat((k,) + (1,) * (z_cond.ndim - 1))[rows]
+        fs_rows = torch.full((n_rows,), fs_val, dtype=torch.float32, device=z_cond.device)
 
         def keep_sites(cache):
             if not cache_sites:
                 return cache
             return {n: a for n, a in cache.items() if n.startswith(tuple(cache_sites))}
 
-        if guidance.sequential and k > 1:
-            fss = fs_batch.reshape(k, b)
+        def unet(x_k, t_batch, part=slice(None), **kw):
+            """The UNet on this rank's branch rows (`part` of them)."""
+            x, t_b = x_k[rows][part], t_batch[rows][part]
+            return self.unet(torch.cat([x, z_rows[part]], dim=-1), t_b, ctx_rows[part],
+                             fs=fs_rows[part], frames=frame_axis, **kw)
 
-            def per_branch(x_k, t_batch, caches=None, **kw):
-                """One UNet call per branch j, with branch j's cache if given."""
-                xs, ts = x_k.reshape((k, b) + x_k.shape[1:]), t_batch.reshape(k, b)
+        def gather(v):
+            return branch_axis.gather(v, 0)
+
+        if guidance.sequential and k > 1:
+            # unsharded, the K chunks of B rows are the K branches
+            parts = [slice(s, s + b) for s in range(0, n_rows, b)]
+
+            def per_part(x_k, t_batch, caches=None, **kw):
+                """One UNet call per chunk j of B rows, with chunk j's cache
+                if given."""
                 outs = []
-                for j in range(k):
+                for j, part in enumerate(parts):
                     if caches is not None:
                         kw["attn_cache"] = caches[j]
-                    outs.append(self.unet(torch.cat([xs[j], z_cond], dim=-1), ts[j],
-                                          contexts[j], fs=fss[j], **kw))
+                    outs.append(unet(x_k, t_batch, part, **kw))
                 return outs
 
             def denoise(x_k, t_batch):
-                return torch.cat(per_branch(x_k, t_batch), dim=0)
+                return gather(torch.cat(per_part(x_k, t_batch), dim=0))
 
             def denoise_full(x_k, t_batch):
-                outs = per_branch(x_k, t_batch, collect_cache=True, cache_kinds=cache_kinds,
-                                  cache_dtype=store_dtype)
-                return torch.cat([v for v, _ in outs], dim=0), [keep_sites(c) for _, c in outs]
+                outs = per_part(x_k, t_batch, collect_cache=True, cache_kinds=cache_kinds,
+                                cache_dtype=store_dtype)
+                return (gather(torch.cat([v for v, _ in outs], dim=0)),
+                        [keep_sites(c) for _, c in outs])
 
             def denoise_reuse(x_k, t_batch, caches):
-                return torch.cat(per_branch(x_k, t_batch, caches, cache_kinds=cache_kinds),
-                                 dim=0)
+                return gather(torch.cat(per_part(x_k, t_batch, caches, cache_kinds=cache_kinds),
+                                        dim=0))
 
             return denoise, denoise_full, denoise_reuse
-
-        ctx_flat = contexts.reshape((k * b,) + contexts.shape[2:])
-        z_cond_k = z_cond.repeat((k,) + (1,) * (z_cond.ndim - 1))
 
         def denoise(x_k, t_batch):
             # shared_prefix=k: the sampler tiles one latent over the K CFG
             # branches, so the UNet computes the context-free prefix once
-            return self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
-                             fs=fs_batch, shared_prefix=k)
+            return gather(unet(x_k, t_batch, shared_prefix=prefix))
 
         def denoise_full(x_k, t_batch):
-            v, cache = self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
-                                 fs=fs_batch, collect_cache=True, cache_kinds=cache_kinds,
-                                 cache_dtype=store_dtype)
-            return v, keep_sites(cache)
+            v, cache = unet(x_k, t_batch, collect_cache=True, cache_kinds=cache_kinds,
+                            cache_dtype=store_dtype)
+            return gather(v), keep_sites(cache)
 
         def denoise_reuse(x_k, t_batch, cache):
-            return self.unet(torch.cat([x_k, z_cond_k], dim=-1), t_batch, ctx_flat,
-                             fs=fs_batch, attn_cache=cache, cache_kinds=cache_kinds)
+            return gather(unet(x_k, t_batch, attn_cache=cache, cache_kinds=cache_kinds))
 
         return denoise, denoise_full, denoise_reuse
 
@@ -267,18 +298,26 @@ class VideoDiffusionEngine:
 
     def _prepare(self, guidance_frames, token_ids, uncond_token_ids, dd: DDIMSchedule,
                  guidance: GuidanceConfig, cond_idx: int, noise: Optional[GenerateNoise],
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], batch: slice = slice(None),
+                 frame_block: slice = slice(None)):
         """The stage before sampling: the noise (drawn if not given), the
         guidance latents and the K branch contexts, all on the engine's
-        device."""
+        device. batch / frame_block: this rank's block of the samples and
+        frames under a mesh. The noise is drawn at the whole batch's shape
+        and sliced, so that the chain's draws are the single-device ones; the
+        contexts come from frame `cond_idx` of the whole clip, which every
+        rank is given, so they need no collective."""
         if noise is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             noise = self.draw_noise(guidance_frames.shape, dd.num_steps, generator)
-        frames = guidance_frames.to(self.device)
-        z_cond = self.encode_frames(frames, noise.posterior.to(self.device))
-        contexts = self.build_contexts(frames, cond_idx, token_ids.to(self.device),
-                                       uncond_token_ids.to(self.device), guidance)
+        noise = GenerateNoise(x_T=noise.x_T[batch, frame_block],
+                              steps=noise.steps[:, batch, frame_block],
+                              posterior=noise.posterior[batch, frame_block])
+        frames = guidance_frames[batch].to(self.device)
+        z_cond = self.encode_frames(frames[:, frame_block], noise.posterior.to(self.device))
+        contexts = self.build_contexts(frames, cond_idx, token_ids[batch].to(self.device),
+                                       uncond_token_ids[batch].to(self.device), guidance)
         return noise, z_cond, contexts
 
     @torch.no_grad()
@@ -319,11 +358,36 @@ class VideoDiffusionEngine:
         `attn_reuse_dtype`) to the cell's other steps; interval 1 is exact
         sampling. on_stage(name) is called after "prepare", after each
         sampling step ("step", or "full" / "reuse" under attention reuse) and
-        after "decode". The sharded paths (`mesh`) are not ported yet."""
+        after "decode".
+
+        mesh: a ("dp", "sp", "tp") DeviceMesh (`parallel.mesh.make_mesh`),
+        every rank calling with the same arguments (the whole batch, and the
+        same `noise` or an equally seeded `generator`). Frames shard over
+        "sp"; whole samples shard over "dp" when the batch divides, else (one
+        sample on two devices) the K*B guidance-branch rows do (CFG-branch
+        dp, `_denoise_fn`'s branch_axis). Each rank draws or takes the whole
+        batch's noise and keeps its block, VAE-encodes and decodes its own
+        frames and samples its block; the returned video is the whole batch
+        on every rank, as the JAX package returns a global array. Needs
+        frames % sp == 0, and batch % dp == 0 or K*batch % dp == 0; tp > 1
+        is not ported."""
+        b, t = guidance_frames.shape[:2]
+        k = guidance.num_branches
+        dp_axis, sp_axis = axis(mesh, "dp"), axis(mesh, "sp")
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded generation (mesh, CFG-branch and tensor parallelism) is not ported "
-                "yet (see ROADMAP.md)")
+            if mesh_shape(mesh)["tp"] > 1:
+                raise NotImplementedError(
+                    "tensor parallelism (tp > 1) is not ported to the PyTorch package yet "
+                    "(see ROADMAP.md)")
+            dp, sp = dp_axis.size, sp_axis.size
+            if t % sp or (b % dp and (k * b) % dp):
+                raise ValueError(
+                    f"sharded generate needs frames {t} % sp {sp} == 0 and either batch {b} % "
+                    f"dp {dp} == 0 (sample-dp) or branches*batch {k * b} % dp == 0 (CFG-dp)")
+        # CFG-branch dp: a batch that cannot shard over dp (e.g. ONE sample
+        # on two devices) spreads its K tiled guidance branches over dp
+        cfg_dp = b % dp_axis.size != 0
+        batch = slice(None) if cfg_dp else dp_axis.block(b)
         if attn_reuse_interval > 1:
             # the JAX package caps a window near 24 steps for its serving
             # watchdog; on the card the cap bounds nothing, but the same
@@ -331,11 +395,13 @@ class VideoDiffusionEngine:
             chunk = attn_reuse_interval * max(1, 24 // attn_reuse_interval)
         dd = DDIMSchedule.create(self.schedule, steps, eta=eta, timestep_spacing=timestep_spacing)
         noise, z_cond, contexts = self._prepare(guidance_frames, token_ids, uncond_token_ids, dd,
-                                                guidance, cond_idx, noise, generator)
+                                                guidance, cond_idx, noise, generator, batch,
+                                                sp_axis.block(t))
         fs_val = float(fs if fs is not None else self.cfg.unet.default_fs)
         denoise, denoise_full, denoise_reuse = self._denoise_fn(
             z_cond, contexts, fs_val, guidance, cache_kinds=attn_reuse_kinds,
-            cache_sites=attn_reuse_sites, cache_dtype=attn_reuse_dtype)
+            cache_sites=attn_reuse_sites, cache_dtype=attn_reuse_dtype,
+            branch_axis=dp_axis if cfg_dp else NO_AXIS, frame_axis=sp_axis)
         if on_stage is not None:
             on_stage("prepare")
         step_noise = noise.steps.to(self.device)
@@ -347,12 +413,15 @@ class VideoDiffusionEngine:
             if attn_reuse_interval > 1:
                 x = ddim_sample_window_pab(denoise_full, denoise_reuse, x, dd,
                                            lambda i: step_noise[i], s0, num,
-                                           attn_reuse_interval, guidance, on_step=on_step)
+                                           attn_reuse_interval, guidance, on_step=on_step,
+                                           frame_axis=sp_axis)
             else:
                 x = ddim_sample_window(denoise, x, dd, lambda i: step_noise[i], s0, num,
-                                       guidance, on_step=on_step)
+                                       guidance, on_step=on_step, frame_axis=sp_axis)
             s0 += num
         video = self.decode_latents(x).float().clamp(-1.0, 1.0)
+        # under CFG-branch dp every dp rank holds the whole batch
+        video = sp_axis.gather(video, 1) if cfg_dp else gather_video_batch(video, mesh)
         if on_stage is not None:
             on_stage("decode")
         return video

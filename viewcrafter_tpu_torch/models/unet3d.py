@@ -29,6 +29,16 @@ config): `use_relative_position`, a Shaw-style learned relative-position bias
 `use_causal_attention`, a lower-triangular mask over the frames. As in the
 JAX package, a temporal attention with either takes the plain path, not the
 layer kernel nor `temporal_attention_fused`.
+
+Frame sharding (`frames`, an "sp" mesh axis of `parallel/mesh.py`): x holds
+this rank's block of the clip's frames. Spatial stages treat frames as batch
+entries and run on the local block; the two modules that read across frames,
+`TemporalTransformer` (the temporal attentions and `init_attn`, whose
+GroupNorm statistics span all frames) and `TemporalConvBlock` (its GroupNorms
+and the conv's 3-frame window), gather the clip's frames over the axis, run
+on all of them, kernels included, and keep this rank's block: the temporal
+work is repeated on every rank of the axis, as the all-gathers XLA inserts
+around those stages in the JAX package amount to.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from viewcrafter_tpu_torch.ops.kernels import temporal_attention as _tattn
 from viewcrafter_tpu_torch.ops.kernels import temporal_conv as _tconv
 from viewcrafter_tpu_torch.ops.kernels import temporal_layer as _tlayer
 from viewcrafter_tpu_torch.ops.schedule import timestep_embedding
+from viewcrafter_tpu_torch.parallel.mesh import NO_AXIS, Axis
 
 
 class CrossAttention(nn.Module):
@@ -329,8 +340,11 @@ class TemporalTransformer(nn.Module):
                 inner, heads, dim_head, relative_position, temporal_length))
         self.proj_out = nn.Linear(inner, channels)
 
-    def forward(self, x, cache: AttnCacheCtx = _NO_CACHE, site: str = ""):
-        # x: (B, T, H, W, C); GroupNorm statistics span all frames
+    def forward(self, x, cache: AttnCacheCtx = _NO_CACHE, site: str = "",
+                frames: Axis = NO_AXIS):
+        # x: (B, T, H, W, C); GroupNorm statistics span all frames, so a
+        # frame-sharded clip is gathered whole and this rank's block kept
+        x = frames.gather(x, 1)
         b, t, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(b, t, hh * ww, c))
         mask = None
@@ -339,7 +353,7 @@ class TemporalTransformer(nn.Module):
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h, mask=mask, cache=cache, site=f"{site}/block_{i}")
         h = self.proj_out(h)
-        return x + h.reshape(b, t, hh, ww, c)
+        return frames.local(x + h.reshape(b, t, hh, ww, c), 1)
 
 
 class TemporalConv3(nn.Module):
@@ -365,7 +379,9 @@ class TemporalConv3(nn.Module):
 
 
 class TemporalConvBlock(nn.Module):
-    """4x (GroupNorm -> SiLU -> Conv3d(3,1,1)) residual stack."""
+    """4x (GroupNorm -> SiLU -> Conv3d(3,1,1)) residual stack; a
+    frame-sharded clip (`frames`) is gathered whole and this rank's block
+    kept."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -373,11 +389,12 @@ class TemporalConvBlock(nn.Module):
             self.add_module(f"norm_{i}", GroupNorm32(channels, with_silu=True))
             self.add_module(f"conv_{i}", TemporalConv3(channels, channels))
 
-    def forward(self, x):
+    def forward(self, x, frames: Axis = NO_AXIS):
+        x = frames.gather(x, 1)
         h = x
         for i in range(4):
             h = getattr(self, f"conv_{i}")(getattr(self, f"norm_{i}")(h))
-        return x + h
+        return frames.local(x + h, 1)
 
 
 class ResBlock(nn.Module):
@@ -395,7 +412,7 @@ class ResBlock(nn.Module):
         if use_temporal_conv:
             self.temporal_conv = TemporalConvBlock(out_ch)
 
-    def forward(self, x, emb, batch_size: int):
+    def forward(self, x, emb, batch_size: int, frames: Axis = NO_AXIS):
         # x: (BT, H, W, C); emb: (BT, D)
         h = self.in_conv(self.in_norm(x))
         h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
@@ -405,7 +422,7 @@ class ResBlock(nn.Module):
         h = x + h
         if hasattr(self, "temporal_conv"):
             bt, hh, ww, c = h.shape
-            hv = self.temporal_conv(h.reshape(batch_size, bt // batch_size, hh, ww, c))
+            hv = self.temporal_conv(h.reshape(batch_size, bt // batch_size, hh, ww, c), frames)
             h = hv.reshape(bt, hh, ww, c)
         return h
 
@@ -507,7 +524,7 @@ class UNet3D(nn.Module):
     def forward(self, x, timesteps, context, fs=None, attn_cache=None,
                 collect_cache: bool = False,
                 cache_kinds=("spatial", "cross", "temporal"), cache_dtype=None,
-                shared_prefix: int = 1):
+                shared_prefix: int = 1, frames: Axis = NO_AXIS):
         """attn_cache / collect_cache: PAB-style attention-output reuse (see
         AttnCacheCtx). attn_cache is a dict of site name -> tensor consumed
         instead of computing those sites; collect_cache=True returns
@@ -520,7 +537,11 @@ class UNet3D(nn.Module):
         `context` differs per branch). The context-free prefix of the net,
         up to the first cross-attention, then runs once at batch B/K and is
         replicated there: the same output for less work. Off whenever a
-        cache is read or collected, as in the JAX package."""
+        cache is read or collected, as in the JAX package.
+
+        frames: the "sp" axis when x holds this rank's block of the clip's
+        frames (module docstring); `context` then still covers the whole
+        clip, and its per-frame image tokens are sliced to the block."""
         cache = _NO_CACHE
         if attn_cache is not None or collect_cache:
             cache = AttnCacheCtx(
@@ -543,9 +564,11 @@ class UNet3D(nn.Module):
 
         # --- context: per-frame image tokens when L == 77 + 16*T -------------
         tcl = cfg.text_context_len
-        if context.shape[1] == tcl + t * 16:
+        t_all = t * frames.size
+        if context.shape[1] == tcl + t_all * 16:
             ctx_text = context[:, :tcl].repeat_interleave(t, dim=0)
-            ctx_img = context[:, tcl:].reshape(b * t, 16, context.shape[-1])
+            ctx_img = context[:, tcl:].reshape(b, t_all, 16, context.shape[-1])
+            ctx_img = ctx_img[:, frames.block(t_all)].reshape(b * t, 16, context.shape[-1])
             ctx = torch.cat([ctx_text, ctx_img], dim=1)
         else:
             ctx = context.repeat_interleave(t, dim=0)
@@ -566,7 +589,7 @@ class UNet3D(nn.Module):
             return emb if state["tiled"] else emb[: state["b"] * t]
 
         def run_res(name, h):
-            return getattr(self, name)(h, cur_emb(), state["b"])
+            return getattr(self, name)(h, cur_emb(), state["b"], frames)
 
         def run_spatial(name, h):
             tk = 1 if state["tiled"] else k_sh
@@ -578,7 +601,8 @@ class UNet3D(nn.Module):
         def run_temporal(name, h):
             bt, sh, sw, c = h.shape
             hv = h.reshape(state["b"], t, sh, sw, c)
-            return getattr(self, name)(hv, cache=cache, site=name).reshape(bt, sh, sw, c)
+            return getattr(self, name)(hv, cache=cache, site=name,
+                                       frames=frames).reshape(bt, sh, sw, c)
 
         def pop_skip(h):
             skip = hs.pop()

@@ -70,11 +70,16 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where the build of the current sources lives (it may not exist yet)."""
+    return BUILD_DIR / f"libvc_kernels_{_digest()}.so"
+
+
 def build() -> Path:
     """Compile the kernels (if this source set has no build yet) and return
     the path of the shared library."""
     global build_log
-    out = BUILD_DIR / f"libvc_kernels_{_digest()}.so"
+    out = library_path()
     log = out.with_suffix(".log")
     if out.exists():
         build_log = log.read_text() if log.exists() else ""

@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from viewcrafter_tpu_torch.parallel.mesh import NO_AXIS, Axis
+
 
 def make_beta_schedule(
     schedule: str,
@@ -196,16 +198,29 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 
 
 def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
-                      guidance_rescale: float) -> torch.Tensor:
+                      guidance_rescale: float, frames: Axis = NO_AXIS) -> torch.Tensor:
     """Rescale CFG output std to the cond-branch std (arXiv:2305.08891 §3.4;
     cf. utils_diffusion.py:147-158). Reduces over all non-batch axes with the
-    population std (ddof 0), as jnp.std does."""
+    population std (ddof 0), as jnp.std does. frames: the "sp" axis when the
+    tensors hold this rank's block of a (B, T, ...) clip's frames; the std
+    then spans the whole clip (two all-reduced passes, mean then squares)."""
     axes = tuple(range(1, noise_pred_text.ndim))
-    std_text = torch.std(noise_pred_text.float(), dim=axes, keepdim=True, correction=0)
-    std_cfg = torch.std(noise_cfg.float(), dim=axes, keepdim=True, correction=0)
+    if frames.size == 1:
+        std_text = torch.std(noise_pred_text.float(), dim=axes, keepdim=True, correction=0)
+        std_cfg = torch.std(noise_cfg.float(), dim=axes, keepdim=True, correction=0)
+    else:
+        std_text, std_cfg = (_std_over_frames(a.float(), axes, frames)
+                             for a in (noise_pred_text, noise_cfg))
     # guard a degenerate all-zero prediction (e.g. freshly-initialized model)
     rescaled = noise_cfg * (std_text / torch.clamp(std_cfg, min=1e-8))
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+def _std_over_frames(x: torch.Tensor, axes: tuple, frames: Axis) -> torch.Tensor:
+    n = x[0].numel() * frames.size
+    mean = frames.sum(x.sum(dim=axes, keepdim=True, dtype=torch.float64)) / n
+    sq = frames.sum((x.double() - mean).square().sum(dim=axes, keepdim=True))
+    return (sq / n).sqrt().float()
 
 
 def predict_eps_from_z_and_v(x_t, v, sqrt_acp_t, sqrt_1macp_t):

@@ -25,7 +25,16 @@ Each pass runs
 
 Everything runs on the pipeline's device: with `device=None` that is the
 card, and without one the pipeline raises; the CPU only when asked for.
-Multi-device sampling is not ported yet and raises (see ROADMAP.md). The
+
+Multi-device sampling (`mesh_devices` > 1): one process per device in a
+process group of exactly that many ranks (torchrun; `parallel/mesh.py`), each
+building the same pipeline. Rank 0 runs the mode: DUSt3R, the alignment, the
+render and every artifact write; before each diffusion call it broadcasts the
+guidance frames, and every rank takes part in the sharded `generate_staged`
+(`run_diffusion`). The other ranks wait in `run()` for those calls. Where the
+JAX package falls back to its serial loop because the host has fewer devices
+than `mesh_devices`, the port raises: that fallback would draw other noise
+than the sharded run. Tensor parallelism (`mesh_tp` > 1) is not ported. The
 released checkpoints load where `ckpt_path` / `model_path` exist
 (`setup_models`, through `utils/checkpoint.py`); without them the models hold
 seeded random weights, as the JAX package's dev mode does. With a loaded
@@ -76,6 +85,7 @@ from viewcrafter_tpu_torch.models.lvdm import (
 )
 from viewcrafter_tpu_torch.ops.rasterize import render_trajectory
 from viewcrafter_tpu_torch.ops.resize import resize_bilinear
+from viewcrafter_tpu_torch.parallel import mesh as pm
 from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 from viewcrafter_tpu_torch.utils import checkpoint as ck
 from viewcrafter_tpu_torch.utils import io as vio
@@ -131,8 +141,8 @@ class InferenceOptions:
     attn_reuse_sites: tuple = ()
     attn_reuse_kinds: tuple = ("spatial", "cross", "temporal")
     attn_reuse_dtype: str = "bf16"  # cache storage: "bf16" | "f8"
-    mesh_devices: int = 0  # >1: multi-device sampling, not ported
-    mesh_tp: int = 1
+    mesh_devices: int = 0  # >1: multi-device sampling over that many ranks
+    mesh_tp: int = 1  # >1: tensor parallelism, not ported
     # dust3r
     model_path: Optional[str] = None
     batch_size: int = 8  # pairs per decoder call
@@ -180,15 +190,32 @@ class ViewCrafterPipeline:
     then the trajectory), "write_render" (the upsample, the render video and
     the PLY files), then per diffusion call the engine's "prepare", one
     "step" per DDIM step and "decode", and "write_video" (the diffusion
-    video). Timing hooks; the caller synchronizes."""
+    video). Timing hooks; the caller synchronizes.
+
+    With opts.mesh_devices > 1 the process group must hold that many ranks
+    (`parallel.mesh.init_distributed`), and `device` is this rank's device
+    (default: one card per local rank)."""
 
     def __init__(self, opts: InferenceOptions, init_models: bool = True, device=None,
                  model_cfg: Optional[ModelConfig] = None,
                  dust3r_cfg: Optional[Dust3rConfig] = None,
                  on_stage: Optional[Callable[[str], None]] = None,
                  dtype: torch.dtype = torch.bfloat16):
+        if opts.mesh_tp > 1:
+            raise not_ported("tensor parallelism (mesh_tp > 1)")
+        self.rank, self.world = 0, 1
         if opts.mesh_devices > 1:
-            raise not_ported("multi-device sampling (mesh_devices > 1)")
+            world = pm.world_size()
+            if world != opts.mesh_devices:
+                raise RuntimeError(
+                    f"mesh_devices={opts.mesh_devices} needs a process group of "
+                    f"{opts.mesh_devices} ranks, and this process has {world}: run "
+                    f"`torchrun --nproc_per_node {opts.mesh_devices} -m viewcrafter_tpu_torch.cli "
+                    f"... --mesh_devices {opts.mesh_devices}`")
+            self.rank, self.world = pm.rank(), world
+            if device is None:
+                device = pm.rank_device()
+        self._mesh = None
         self.opts = opts
         self.device = resolve_device(device)
         self.model_cfg: ModelConfig = model_cfg or get_model_config(opts.model)
@@ -408,22 +435,52 @@ class ViewCrafterPipeline:
                              "calls")
         return self._noise.pop(0)
 
-    def run_diffusion(self, frames01: np.ndarray, cond_idx: int = 0,
+    def run_diffusion(self, frames01: Optional[np.ndarray], cond_idx: int = 0,
                       noise: Optional[GenerateNoise] = None) -> np.ndarray:
         """Guidance frames in [0, 1] (T, H, W, 3) -> generated video in
         [-1, 1] (viewcrafter.py:93-106 + image_guided_synthesis). The draws
         come from `noise` if given, else from the next of the draws handed
         to `run(noise=...)`, else from the pipeline's generator, seeded with
-        opts.seed; explicit draws cover one sample only. With n_samples > 1
-        the extra samples are saved as diffusion_sample{i}.mp4 and sample 0
-        is returned, as in the reference."""
+        opts.seed. With n_samples > 1 the extra samples are saved as
+        diffusion_sample{i}.mp4 and sample 0 is returned, as in the
+        reference; explicit draws then cover all samples of a sharded call
+        (a batch of n_samples) and may not be given to the serial loop.
+
+        With mesh_devices > 1 every rank calls this: rank 0's frames and
+        cond_idx go to every rank (the others may pass None), and the
+        samples run as one sharded batch (`_sample_mesh`), or, where no
+        sharding regime fits, in the serial loop on every rank; only rank 0
+        writes."""
+        if self.world > 1:
+            frames01, cond_idx = self._share_call(frames01, cond_idx)
+        return self._diffuse(frames01, cond_idx, noise)
+
+    def _share_call(self, frames01: Optional[np.ndarray], cond_idx: int):
+        """Rank 0's (frames, cond_idx) on every rank, or None on every rank
+        when rank 0 passes None frames (the end of its run)."""
+        head = torch.zeros(5, dtype=torch.int64, device=self.device)
+        if self.rank == 0 and frames01 is not None:
+            head = torch.tensor([1, *frames01.shape[:3], cond_idx], device=self.device)
+        head = pm.replicate(head).tolist()
+        if not head[0]:
+            return None
+        buf = torch.empty((*head[1:4], 3), dtype=torch.float32, device=self.device)
+        if self.rank == 0:
+            buf = torch.as_tensor(np.asarray(frames01, np.float32), device=self.device)
+        return pm.replicate(buf).cpu().numpy(), head[4]
+
+    def _follow(self) -> None:
+        """A rank other than 0: take part in each of rank 0's diffusion calls
+        until its run ends."""
+        while (call := self._share_call(None, 0)) is not None:
+            self._diffuse(*call, None)
+
+    def _diffuse(self, frames01: np.ndarray, cond_idx: int,
+                 noise: Optional[GenerateNoise]) -> np.ndarray:
         opts = self.opts
         n = max(1, opts.n_samples)
         if noise is None:
             noise = self._next_noise()
-        if noise is not None and n > 1:
-            raise ValueError("explicit noise covers one sample; n_samples is "
-                             f"{opts.n_samples}")
         videos = torch.as_tensor(np.asarray(frames01, np.float32) * 2.0 - 1.0,
                                  device=self.device)[None]
         prompt = opts.prompt if opts.text_input else ""
@@ -432,26 +489,58 @@ class ViewCrafterPipeline:
         allow_fb = not self.loaded_real_ckpt
         ids = torch.from_numpy(tokenize([prompt], allow_fallback=allow_fb)).long()
         uids = torch.from_numpy(tokenize([""], allow_fallback=allow_fb)).long()
+        if self.world > 1:  # rank 0's ids: the hash fallback is salted per process
+            ids, uids = (pm.replicate(t.to(self.device)).cpu() for t in (ids, uids))
         guidance = GuidanceConfig(scale=opts.unconditional_guidance_scale,
                                   rescale=opts.guidance_rescale,
                                   cfg_img=opts.cfg_img if opts.multiple_cond_cfg else None,
                                   sequential=opts.sequential_cfg)
-        results = []
-        for _ in range(n):
+        kwargs = dict(steps=opts.ddim_steps, eta=opts.ddim_eta, guidance=guidance,
+                      fs=opts.frame_stride, timestep_spacing=opts.timestep_spacing,
+                      cond_idx=cond_idx, chunk=min(10, opts.ddim_steps),
+                      attn_reuse_interval=opts.attn_reuse_interval,
+                      attn_reuse_sites=tuple(opts.attn_reuse_sites),
+                      attn_reuse_kinds=tuple(opts.attn_reuse_kinds),
+                      attn_reuse_dtype=opts.attn_reuse_dtype,
+                      generator=self.generator, on_stage=self.on_stage)
+        mesh = self._sample_mesh(n, guidance.num_branches)
+        if mesh is not None:
+            # one sharded batch: the n chains ride dp, or their CFG branches do
             video = self.engine.generate_staged(
-                videos, ids, uids, steps=opts.ddim_steps, eta=opts.ddim_eta, guidance=guidance,
-                fs=opts.frame_stride, timestep_spacing=opts.timestep_spacing,
-                cond_idx=cond_idx, chunk=min(10, opts.ddim_steps),
-                attn_reuse_interval=opts.attn_reuse_interval,
-                attn_reuse_sites=tuple(opts.attn_reuse_sites),
-                attn_reuse_kinds=tuple(opts.attn_reuse_kinds),
-                attn_reuse_dtype=opts.attn_reuse_dtype,
-                noise=noise, generator=self.generator, on_stage=self.on_stage)
-            results.append(video[0].cpu().numpy())
-        for si in range(1, n):
-            vio.save_video((results[si] + 1.0) / 2.0,
-                           os.path.join(opts.save_dir, f"diffusion_sample{si}.mp4"))
+                videos.repeat(n, 1, 1, 1, 1), ids.repeat(n, 1), uids.repeat(n, 1),
+                mesh=mesh, noise=noise, **kwargs)
+            results = list(video.cpu().numpy())
+        else:
+            if noise is not None and n > 1:
+                raise ValueError("explicit noise covers one call; the serial loop makes "
+                                 f"n_samples = {opts.n_samples}")
+            results = [self.engine.generate_staged(videos, ids, uids, noise=noise,
+                                                   **kwargs)[0].cpu().numpy()
+                       for _ in range(n)]
+        if self.rank == 0:
+            for si in range(1, n):
+                vio.save_video((results[si] + 1.0) / 2.0,
+                               os.path.join(opts.save_dir, f"diffusion_sample{si}.mp4"))
         return results[0]  # (T, H, W, 3) in [-1, 1]
+
+    def _sample_mesh(self, n_samples: int, num_branches: int = 2):
+        """The JAX package's `_sample_mesh`: a dp-only mesh over the
+        mesh_devices ranks (built once), or None for the serial loop. Two
+        regimes (`generate_staged`): n_samples % dp == 0 shards whole
+        samples over dp; a single sample shards its K CFG guidance branches
+        over dp instead (the reference runs the branches one after the other
+        on one GPU, ddim.py:222-228)."""
+        opts = self.opts
+        if opts.mesh_devices <= 1:
+            return None
+        dp = opts.mesh_devices
+        sample_dp = n_samples >= 2 and n_samples % dp == 0
+        cfg_dp = (n_samples * num_branches) % dp == 0
+        if not (sample_dp or cfg_dp):
+            return None
+        if self._mesh is None:
+            self._mesh = pm.make_mesh(dp, dp=dp, devices=[self.device] * self.world)
+        return self._mesh
 
     def _diffuse_and_save(self, frames01: np.ndarray, name: str) -> np.ndarray:
         result = self.run_diffusion(frames01)
@@ -672,7 +761,8 @@ class ViewCrafterPipeline:
         iteration or a segment) in order; it raises if the list runs short,
         and without it the pipeline's generator draws. Returns the video
         (T, H, W, 3) in [-1, 1], or the list of each iteration's video in
-        the iterative modes."""
+        the iterative modes; on a rank other than 0 of a multi-device run,
+        None (that rank only takes part in the diffusion calls)."""
         opts = self.opts
         modes = {
             "single_view_target": self.nvs_single_view,
@@ -685,16 +775,20 @@ class ViewCrafterPipeline:
         }
         if opts.mode not in modes:
             raise KeyError(f"invalid mode: {opts.mode}")
-        os.makedirs(opts.save_dir, exist_ok=True)
         self._noise = None if noise is None else (
             [noise] if isinstance(noise, GenerateNoise) else list(noise))
-        self.elevation = opts.elevation
-        self.load_inputs(images)
-        self.run_dust3r(self.images, clean_pc=opts.mode == "sparse_view_interp")
         try:
+            if self.rank != 0:
+                return self._follow()
+            os.makedirs(opts.save_dir, exist_ok=True)
+            self.elevation = opts.elevation
+            self.load_inputs(images)
+            self.run_dust3r(self.images, clean_pc=opts.mode == "sparse_view_interp")
             return modes[opts.mode]()
         finally:
             self._noise = None
+            if self.world > 1 and self.rank == 0:
+                self._share_call(None, 0)  # the end of the run: the other ranks return
 
 
 def scene_pts_override(scene: AlignedScene, pts: np.ndarray) -> AlignedScene:

@@ -9,6 +9,8 @@ leading axis of one denoiser call. The per-step noise is an argument: the
 caller passes `step_noise(i)`, a standard-normal tensor shaped like x, so
 that a test can hand the sampler the same numbers the JAX package draws.
 The per-step scalars are computed in float32 as the JAX package does.
+Under frame sharding (`frame_axis`) x holds this rank's frames, and the CFG
+rescale's statistics, which span the clip, are all-reduced over the axis.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from viewcrafter_tpu_torch.parallel.mesh import NO_AXIS, Axis
 from viewcrafter_tpu_torch.ops.schedule import (
     DDIMSchedule,
     predict_eps_from_z_and_v,
@@ -56,7 +59,10 @@ class StepParts(NamedTuple):
 
 
 def ddim_step_parts(batch_size: int, schedule: DDIMSchedule,
-                    guidance: GuidanceConfig = GuidanceConfig()) -> StepParts:
+                    guidance: GuidanceConfig = GuidanceConfig(),
+                    frame_axis: Axis = NO_AXIS) -> StepParts:
+    """frame_axis: the "sp" axis when x holds this rank's block of frames:
+    the CFG rescale's statistics then span the whole clip."""
     b = batch_size
     k = guidance.num_branches
     f32 = np.float32
@@ -74,7 +80,7 @@ def ddim_step_parts(batch_size: int, schedule: DDIMSchedule,
             v = (v_uncond + guidance.cfg_img * (v_uncond_img - v_uncond)
                  + guidance.scale * (v_cond - v_uncond_img))
         if guidance.rescale > 0:
-            v = rescale_noise_cfg(v, v_cond, guidance.rescale)
+            v = rescale_noise_cfg(v, v_cond, guidance.rescale, frame_axis)
         return v
 
     def update(i, x, v, noise):
@@ -101,10 +107,10 @@ def ddim_step_parts(batch_size: int, schedule: DDIMSchedule,
 
 
 def make_ddim_step(denoise_fn: Callable, batch_size: int, schedule: DDIMSchedule,
-                   guidance: GuidanceConfig = GuidanceConfig()):
+                   guidance: GuidanceConfig = GuidanceConfig(), frame_axis: Axis = NO_AXIS):
     """Build step(i, x, noise) -> x for sampling-step index i (descending-t
     order); `noise` is a standard-normal tensor shaped like x."""
-    parts = ddim_step_parts(batch_size, schedule, guidance)
+    parts = ddim_step_parts(batch_size, schedule, guidance, frame_axis)
 
     def step(i, x, noise):
         v_all = denoise_fn(parts.tile_k(x), parts.t_batch_at(i, x.device))
@@ -128,11 +134,13 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor, schedule: DDIMSchedule,
 def ddim_sample_window(denoise_fn: Callable, x: torch.Tensor, schedule: DDIMSchedule,
                        step_noise: Callable[[int], torch.Tensor], start: int, num_steps: int,
                        guidance: GuidanceConfig = GuidanceConfig(),
-                       on_step: Optional[Callable[[int, str], None]] = None) -> torch.Tensor:
+                       on_step: Optional[Callable[[int, str], None]] = None,
+                       frame_axis: Axis = NO_AXIS) -> torch.Tensor:
     """Run `num_steps` sampling steps beginning at step `start`: a slice of
     `ddim_sample`'s chain with the same step indices and noise.
-    on_step(i, "step"), if given, is called after each step."""
-    step = make_ddim_step(denoise_fn, x.shape[0], schedule, guidance)
+    on_step(i, "step"), if given, is called after each step. frame_axis:
+    see `ddim_step_parts`."""
+    step = make_ddim_step(denoise_fn, x.shape[0], schedule, guidance, frame_axis)
     x = x.float()
     for i in range(start, start + num_steps):
         x = step(i, x, step_noise(i))
@@ -145,7 +153,8 @@ def ddim_sample_window_pab(denoise_full: Callable, denoise_reuse: Callable, x: t
                            schedule: DDIMSchedule, step_noise: Callable[[int], torch.Tensor],
                            start: int, num_steps: int, interval: int,
                            guidance: GuidanceConfig = GuidanceConfig(),
-                           on_step: Optional[Callable[[int, str], None]] = None) -> torch.Tensor:
+                           on_step: Optional[Callable[[int, str], None]] = None,
+                           frame_axis: Axis = NO_AXIS) -> torch.Tensor:
     """Attention-broadcast window (PAB, arXiv:2408.12588): the window is cut
     into cells of `interval` steps; the
     first step of each cell computes attention fully and collects the
@@ -155,7 +164,7 @@ def ddim_sample_window_pab(denoise_full: Callable, denoise_reuse: Callable, x: t
 
     denoise_full(x_k, t) -> (v, cache); denoise_reuse(x_k, t, cache) -> v.
     on_step(i, "full" | "reuse"), if given, is called after each step."""
-    parts = ddim_step_parts(x.shape[0], schedule, guidance)
+    parts = ddim_step_parts(x.shape[0], schedule, guidance, frame_axis)
     x = x.float()
     cache = None
     for j in range(num_steps):
