@@ -109,9 +109,24 @@ Phases, each printing JSON lines:
   sharded_wiring
            the wiring config at dp 2 x sp 2, 4 gloo ranks on cuda:0, against
            the CPU's float32 run at `run_wiring`'s tolerance
+  sharded_tp
+           tensor parallelism at full width: `viewcrafter_25`, B = 1, K = 2,
+           default routes, 2 DDIM steps, the UNet's heads and channels over
+           tp (dp 1 x tp 2) as 2 gloo ranks on cuda:0, and on 2 cards over
+           NCCL where the machine has them, against `sharded_cfg_dp`'s
+           unsharded reference at its tolerance; each rank line adds the
+           all-reduces' count, seconds and GiB per step and the rank's launch
+           sites (its local heads and widths), and every rank must launch the
+           main path's kernels as often per UNet eval as the unsharded run
+  sharded_tp_wiring
+           the wiring config at 192 channels (3 heads at the 16x16 level:
+           an uneven split) with both opt-in routes, at dp 2 x sp 2 x tp 2 on
+           8 gloo ranks on cuda:0, against the CPU's float32 run: every rank
+           launches all six kernels of the two routes on its local slices
   kernels  each kernel against its plain torch twin at every input shape any
-           phase above launched it with (the sharded ranks' shapes too) (all eight kernels, all paths, the
-           wiring runs included), the two attention kernels once more near
+           phase above launched it with (all eight kernels, all paths, the
+           wiring runs and the sharded ranks' shapes included: under tp the
+           local heads and widths), the two attention kernels once more near
            one-hot (q scaled by 8) and the temporal layer once more near
            one-hot (Wqkv scaled by 4): max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
@@ -129,7 +144,9 @@ Phases, each printing JSON lines:
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
 Then one {"kernels": [...]} line (the fullkv row also lists its DUSt3R sites
-under "dust3r_sites", with the launches of each geometry pass that ran them),
+under "dust3r_sites", with the launches of each geometry pass that ran them;
+every row lists the sites `sharded_tp`'s ranks launched it at under
+"tp_sites", with both ranks' launches),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with no
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -161,7 +178,7 @@ SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  
 # routes path's ds1 site)
 PEAKY_SITES = {"fullkv_attention": (50, 2304, 2304, 10, 64),
                "dual_cross_attention": (50, 9216, 5, 64, 77, 256),
-               "fused_temporal_layer": (2, 25, 2304, 10, 64)}
+               "fused_temporal_layer": (2, 25, 2304, 640, 10, 64)}
 # the kernels built around wgmma and TMA: their ptxas registers and spills
 # get a line of their own, and a spill fails the build phase
 WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel", "gemm_sm90_kernel",
@@ -342,14 +359,16 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
     # each driven site, then one near one-hot site (Wqkv scaled by 4: logits
     # 16 times larger, so the masked padded frames and the rounding of the
     # probabilities decide the result)
+    # (a tensor-parallel rank's site has its block of the heads: inner =
+    # heads * D < C)
     for site, w_mul in ([(s, None) for s in sites["fused_temporal_layer"]]
                         + [(PEAKY_SITES["fused_temporal_layer"], 4.0)]):
-        b, t, s, h, d = site
-        c = h * d
+        b, t, s, c, h, d = site
+        inner = h * d
         x = randn(b, t, s, c)
         lw, lb = 1 + randn(c, scale=0.1, dtype=torch.float32), randn(c, scale=0.1, dtype=torch.float32)
-        wqkv = randn(3 * c, c, scale=(w_mul or 1.0) * c ** -0.5)
-        wo, bo = randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
+        wqkv = randn(3 * inner, c, scale=(w_mul or 1.0) * c ** -0.5)
+        wo, bo = randn(c, inner, scale=inner ** -0.5), randn(c, scale=0.1)
         kw = dict(heads=h, dim_head=d)
         args = (x, lw, lb, wqkv, wo, bo)
         y = temporal_layer.fused_temporal_layer(*args, **kw)
@@ -357,31 +376,33 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
         n = b * t * s
         # yardsticks on operands of the parts' shapes: the two products
         # through cuBLAS, the frame attention through SDPA on permuted views
-        xn, att = randn(n, c), randn(n, c)
+        xn, att = randn(n, c), randn(n, inner)
         q5, k5, v5 = (randn(b, t, s, h, d).permute(0, 2, 3, 1, 4) for _ in range(3))
         yield check("fused_temporal_layer", site, y, ref,
                     lambda: temporal_layer.fused_temporal_layer(*args, **kw),
                     lambda: temporal_layer.fused_temporal_layer_plain(*args, **kw), None,
-                    2.0 * n * c * 3 * c + 4.0 * b * s * h * t * t * d + 2.0 * n * c * c,
+                    2.0 * n * c * 3 * inner + 4.0 * b * s * h * t * t * d + 2.0 * n * inner * c,
                     nbytes(*args, y), variant=w_mul and f"peaky_wqkv{w_mul:g}",
                     extra={"gemm_library_ms": lambda: (F.linear(xn, wqkv), F.linear(att, wo)),
                            "attn_library_ms": lambda: F.scaled_dot_product_attention(q5, k5, v5)})
         del x, wqkv, wo, y, ref, args, xn, att, q5, k5, v5
     torch.cuda.empty_cache()
 
+    # (a tensor-parallel rank's site has its block of the channels and of
+    # the 32 groups)
     for site in sites["group_norm_fused"]:
-        n, s, c, itemsize, silu = site
+        n, s, c, groups, itemsize, silu = site
         dtype = bf if itemsize == 2 else torch.float32
         x = randn(n, s, c, scale=1.5, dtype=dtype) + 0.3
         w = 1 + randn(c, scale=0.1, dtype=torch.float32)
         b = randn(c, scale=0.1, dtype=torch.float32)
-        args = (x, w, b, 32, 1e-5, bool(silu))
+        args = (x, w, b, groups, 1e-5, bool(silu))
         y = groupnorm.group_norm_fused(*args)
         ref = groupnorm.group_norm_fused_plain(*args)
         xcf, wl, bl = x.permute(0, 2, 1), w.to(dtype), b.to(dtype)  # channels-first view
 
-        def library(xcf=xcf, wl=wl, bl=bl, silu=silu):
-            out = F.group_norm(xcf, 32, wl, bl, 1e-5)
+        def library(xcf=xcf, wl=wl, bl=bl, silu=silu, groups=groups):
+            out = F.group_norm(xcf, groups, wl, bl, 1e-5)
             return F.silu(out) if silu else out
         # float32 input rounds nowhere: kernel and twin differ by the order of
         # their f32 sums and the kernel's fast exp in the SiLU
@@ -1253,25 +1274,34 @@ def timed_generate(eng, inputs, steps: int, guidance, mesh=None) -> tuple:
     """`generate_staged` on `inputs` with a stamp after every stage: (video,
     stage seconds, peak memory, launches in all and per UNet eval of the
     sampling steps, launch sites, and the seconds and bytes of the
-    collectives of the sampling steps, as seen by this rank)."""
+    collectives of the sampling steps, as seen by this rank: all of them,
+    and the all-reduces of tensor parallelism apart, their bytes those of
+    this rank's partial sums)."""
     import torch
 
     from viewcrafter_tpu_torch.ops import kernels
     from viewcrafter_tpu_torch.parallel import mesh as pm
 
-    coll = {"s": 0.0, "bytes": 0}
-    gather = pm.all_gather
+    coll = {"s": 0.0, "bytes": 0, "reduce_s": 0.0, "reduce_bytes": 0, "reduces": 0}
+    gather, reduce = pm.all_gather, pm.all_reduce_sum
 
-    def timed_gather(x, group, dim=0):
-        if group is None:  # an axis of one rank: no collective
-            return gather(x, group, dim)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = gather(x, group, dim)
-        torch.cuda.synchronize()
-        coll["s"] += time.perf_counter() - t0
-        coll["bytes"] += out.numel() * out.element_size()
-        return out
+    def timed(fn, kind):
+        def run(x, group, *args):
+            if group is None:  # an axis of one rank: no collective
+                return fn(x, group, *args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, group, *args)
+            torch.cuda.synchronize()
+            dt, nb = time.perf_counter() - t0, out.numel() * out.element_size()
+            coll["s"] += dt
+            coll["bytes"] += nb
+            if kind == "reduce":
+                coll["reduce_s"] += dt
+                coll["reduce_bytes"] += nb
+                coll["reduces"] += 1
+            return out
+        return run
 
     stamps = []
 
@@ -1283,14 +1313,14 @@ def timed_generate(eng, inputs, steps: int, guidance, mesh=None) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    pm.all_gather = timed_gather
+    pm.all_gather, pm.all_reduce_sum = timed(gather, "gather"), timed(reduce, "reduce")
     try:
         t0 = time.perf_counter()
         video = eng.generate_staged(frames, ids, uids, steps=steps, guidance=guidance,
                                     chunk=steps, noise=noise, mesh=mesh, on_stage=on_stage)
         torch.cuda.synchronize()
     finally:
-        pm.all_gather = gather
+        pm.all_gather, pm.all_reduce_sum = gather, reduce
     times = [t0] + [s[1] for s in stamps]
     step_s = [times[i + 1] - times[i] for i in range(1, 1 + steps)]
     counts = kernels.launch_counts()
@@ -1303,6 +1333,10 @@ def timed_generate(eng, inputs, steps: int, guidance, mesh=None) -> tuple:
            "launches_per_unet_eval": {k: (last[2][k] - first[2][k]) / steps for k in counts},
            "collective_s_per_step": (last[3]["s"] - first[3]["s"]) / steps,
            "collective_gib_per_step": (last[3]["bytes"] - first[3]["bytes"]) / steps / 2 ** 30,
+           "all_reduce_s_per_step": (last[3]["reduce_s"] - first[3]["reduce_s"]) / steps,
+           "all_reduce_gib_per_step":
+               (last[3]["reduce_bytes"] - first[3]["reduce_bytes"]) / steps / 2 ** 30,
+           "all_reduces_per_step": (last[3]["reduces"] - first[3]["reduces"]) / steps,
            "collective_s_all": coll["s"], "sites": kernels.launch_sites()}
     return video, res
 
@@ -1326,12 +1360,13 @@ def sharded_rank(spec: dict) -> dict:
     _lib.lib()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = pm.make_mesh(dp=spec["dp"], devices=spec["devices"])
+    mesh = pm.make_mesh(dp=spec["dp"], tp=spec.get("tp", 1), devices=spec["devices"])
     device = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
     for r in range(pm.world_size()):
         if pm.rank() == r:
-            eng = VideoDiffusionEngine(spec["cfg"], device=device)
+            eng = VideoDiffusionEngine(spec["cfg"], device=device,
+                                       **route_kwargs(spec.get("routes", False)))
             if spec["state"] is None:
                 eng.init_params(seed=spec["weights_seed"])
             else:
@@ -1369,15 +1404,16 @@ def compare_videos(got, ref, yard) -> dict:
 
 
 def spawn_phase(phase: str, spec: dict, world: int, backend: str, devices: list,
-                ref, yard, expect_per_eval, sequential=None) -> tuple:
+                ref, yard, expect_per_eval, sequential=None, required=MAIN_KERNELS) -> tuple:
     """One sharded run of `phase`: `world` ranks on `devices` over `backend`,
     rank 0's video against the unsharded `ref` (tolerance from `yard`), the
-    same video on every rank, and every main-path kernel launched in every
-    rank (`expect_per_eval`: the main path's launches per UNet eval, or None
-    for at least one). `sequential`, if given, the unsharded sequential-CFG
-    video: the share of values equal to it is reported too. Emits a line per
-    rank and one for the run; returns (the run's line, the ranks' launch
-    sites)."""
+    same video on every rank, and every kernel of `required` launched in
+    every rank (`expect_per_eval`: the main path's launches per UNet eval, or
+    None for at least one). `sequential`, if given, the unsharded
+    sequential-CFG video: the share of values equal to it is reported too.
+    Emits a line per rank (under tensor parallelism with the rank's launch
+    sites: its local heads and widths) and one for the run; returns (the
+    run's line, the ranks' launch sites)."""
     import torch
 
     from viewcrafter_tpu_torch.parallel import mesh as pm
@@ -1387,10 +1423,14 @@ def spawn_phase(phase: str, spec: dict, world: int, backend: str, devices: list,
                      args=(dict(spec, devices=devices),), timeout=SPAWN_TIMEOUT)
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    tp = spec.get("tp", 1)
     for r in ranks:
         line = {k: v for k, v in r.items() if k not in ("video", "sites")}
+        if tp > 1:
+            line["sites"] = {k: [[list(site), n] for site, n in v.items()]
+                             for k, v in r["sites"].items() if v}
         emit({"phase": f"{phase}_rank", "backend": backend, "world": world, **line})
-        for name in MAIN_KERNELS:
+        for name in required:
             n = r["launches_per_unet_eval"][name]
             if n == 0 or (expect_per_eval is not None and n != expect_per_eval[name]):
                 raise AssertionError(f"{phase} ({backend}, rank {r['rank']}): {name} launched "
@@ -1408,23 +1448,25 @@ def spawn_phase(phase: str, spec: dict, world: int, backend: str, devices: list,
            "s_per_step": [r["s_per_step"] for r in ranks],
            "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
            "collective_s_per_step": [r["collective_s_per_step"] for r in ranks],
-           "launches_per_unet_eval": [{k: r["launches_per_unet_eval"][k] for k in MAIN_KERNELS}
+           "launches_per_unet_eval": [{k: r["launches_per_unet_eval"][k] for k in required}
                                       for r in ranks],
            "spawn_wall_s": wall_s}
+    if tp > 1:
+        for key in ("all_reduce_s_per_step", "all_reduce_gib_per_step", "all_reduces_per_step"):
+            res[key] = [r[key] for r in ranks]
     emit(res)
     if not (res["ok"] and res["finite"] and list(got.shape) == list(ref.shape)):
         raise AssertionError(f"{phase} ({backend}, {world} ranks): {res}")
     return res, [r["sites"] for r in ranks]
 
 
-def run_sharded(phase: str, cfg, dp: int, world: int, smi: str, nccl: bool = False) -> list:
-    """A sharded phase at full width: the unsharded `generate_staged` on
-    this card (batched CFG: the reference; sequential CFG, the same math at
-    other batch sizes: the yardstick of rounding) with the same seeded
-    weights and inputs, then `world` ranks on cuda:0 over gloo with the mesh
-    make_mesh(world, dp); with `nccl`, the same through one NCCL rank, and
-    across two cards over NCCL where the machine has two. Returns the ranks'
-    launch sites."""
+def unsharded_reference(phase: str, cfg, smi: str) -> dict:
+    """The reference of a full-width sharded phase: the unsharded
+    `generate_staged` on this card (batched CFG) with the sharded phases'
+    seeded weights and inputs, and the yardstick of rounding, the same with
+    sequential CFG (the same math at other batch sizes). Emits a line;
+    returns the two videos, the yardstick's max and mean error and the
+    main-path launches per UNet eval."""
     import numpy as np
     import torch
 
@@ -1448,38 +1490,68 @@ def run_sharded(phase: str, cfg, dp: int, world: int, smi: str, nccl: bool = Fal
           "sequential_vs_batched": {"max_abs_err": yard[0], "mean_abs_err": yard[1],
                                     "bit_equal_share": float((seq == ref).mean())},
           "nvidia_smi": smi})
-    expect = {k: ref_res["launches_per_unet_eval"][k] for k in MAIN_KERNELS}
     del eng, inputs
     torch.cuda.empty_cache()
+    return {"ref": ref, "seq": seq, "yard": yard,
+            "expect": {k: ref_res["launches_per_unet_eval"][k] for k in MAIN_KERNELS}}
+
+
+def run_sharded(phase: str, cfg, dp: int, world: int, smi: str, nccl: bool = False,
+                tp: int = 1, reference=None) -> list:
+    """A sharded phase at full width against `reference`
+    (`unsharded_reference`, made here if not given; the same weights and
+    inputs): `world` ranks on cuda:0 over gloo with the mesh
+    make_mesh(world, dp, tp); with `nccl`, the same through one NCCL rank
+    (without tp: one rank holds the whole mesh), and across `world` cards
+    over NCCL where the machine has them. Returns the ranks' launch sites."""
+    import torch
+
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+
+    reference = reference or unsharded_reference(phase, cfg, smi)
     spec = dict(cfg=cfg, state=None, weights_seed=0, seed=SHARDED_SEED, steps=SHARDED_STEPS,
-                guidance=GuidanceConfig(), dp=dp)
+                guidance=GuidanceConfig(), dp=dp, tp=tp)
+    runs = [(world, "gloo", ["cuda:0"] * world, spec)]
+    if nccl and tp == 1:
+        runs.append((1, "nccl", ["cuda:0"], dict(spec, dp=1)))
+    if nccl and torch.cuda.device_count() >= world:
+        runs.append((world, "nccl", [f"cuda:{i}" for i in range(world)], spec))
     sites = []
-    runs = [(world, "gloo", ["cuda:0"] * world)]
-    if nccl:
-        runs.append((1, "nccl", ["cuda:0"]))
-        if torch.cuda.device_count() >= world:
-            runs.append((world, "nccl", [f"cuda:{i}" for i in range(world)]))
-    for n, backend, devices in runs:
-        # one rank holds the whole mesh: dp 1
-        _, s = spawn_phase(phase, dict(spec, dp=dp if n == world else 1), n, backend, devices,
-                           ref, yard, expect, seq)
+    for n, backend, devices, run_spec in runs:
+        _, s = spawn_phase(phase, run_spec, n, backend, devices, reference["ref"],
+                           reference["yard"], reference["expect"], reference["seq"])
         sites += s
     return sites
 
 
-def run_sharded_wiring(gen) -> list:
-    """The wiring config (every gate takes the kernels) at dp 2 x sp 2: 4
-    gloo ranks on cuda:0 (one sample, so its two CFG branches over dp and
-    its 8 frames over sp), against the CPU's float32 run at `run_wiring`'s
-    tolerance (twice the CPU bf16 run's own distance, plus a floor). Returns
-    the ranks' launch sites."""
+def tp_wiring_config():
+    """The wiring config at 192 channels: 3 heads of 64 at the 16x16 level
+    (split 2/1 at tp = 2, each rank with a head where
+    `dual_cross_attention`'s gate holds) and 6 at the 8x8 level."""
+    import dataclasses
+
+    cfg = wiring_config(8)
+    return dataclasses.replace(cfg, name="wiring_tp",
+                               unet=dataclasses.replace(cfg.unet, model_channels=192))
+
+
+def run_sharded_wiring(gen, phase: str = "sharded_wiring", cfg=None, world: int = 4,
+                       tp: int = 1, routes: bool = False) -> list:
+    """A small config whose every gate takes the kernels (default the wiring
+    config) on `world` gloo ranks on cuda:0 at dp 2 x tp `tp` and sp the
+    rest (one sample, so its two CFG branches over dp and its 8 frames over
+    sp), with both opt-in routes when `routes`, against the CPU's float32
+    run at `run_wiring`'s tolerance (twice the CPU bf16 run's own distance,
+    plus a floor). Every rank must launch the main path's kernels, and with
+    `routes` the two route kernels too. Returns the ranks' launch sites."""
     import torch
 
     from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDiffusionEngine
     from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
-    cfg = wiring_config(8)
-    cuda = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cuda")
+    cfg = cfg or wiring_config(8)
+    kw = route_kwargs(routes)
+    cuda = VideoDiffusionEngine(cfg, dtype=torch.bfloat16, device="cuda", **kw)
     cuda.init_params(seed=1)
     state = {n: {k: v.float().cpu() for k, v in getattr(cuda, n).state_dict().items()}
              for n in SUBMODELS}
@@ -1488,7 +1560,7 @@ def run_sharded_wiring(gen) -> list:
               GenerateNoise(*(t.cpu() for t in (noise.x_T, noise.steps, noise.posterior))))
     refs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        ref = VideoDiffusionEngine(cfg, dtype=dtype, device="cpu")
+        ref = VideoDiffusionEngine(cfg, dtype=dtype, device="cpu", **kw)
         ref.load_params(state)
         refs[dtype] = ref.generate_staged(*cpu_in[:3], steps=SHARDED_STEPS,
                                           guidance=GuidanceConfig(), noise=cpu_in[3]).double()
@@ -1498,8 +1570,11 @@ def run_sharded_wiring(gen) -> list:
     torch.cuda.empty_cache()
     spec = dict(cfg=cfg, state={n: {k: v.numpy() for k, v in sd.items()}
                                 for n, sd in state.items()},
-                seed=SHARDED_SEED, steps=SHARDED_STEPS, guidance=GuidanceConfig(), dp=2)
-    _, sites = spawn_phase("sharded_wiring", spec, 4, "gloo", ["cuda:0"] * 4, o32, yard, None)
+                seed=SHARDED_SEED, steps=SHARDED_STEPS, guidance=GuidanceConfig(), dp=2, tp=tp,
+                routes=routes)
+    required = MAIN_KERNELS + (("group_norm_fused", "dual_cross_attention") if routes else ())
+    _, sites = spawn_phase(phase, spec, world, "gloo", ["cuda:0"] * world, o32, yard, None,
+                           required=required)
     return sites
 
 
@@ -1686,10 +1761,19 @@ def main() -> int:
     # multi-device sampling: ranks spawned from here, each phase after the
     # models before it are freed
     torch.cuda.empty_cache()
-    sharded_sites = run_sharded("sharded_cfg_dp", flagship, dp=2, world=2, smi=smi, nccl=True)
+    flagship_ref = unsharded_reference("sharded_cfg_dp", flagship, smi)
+    sharded_sites = run_sharded("sharded_cfg_dp", flagship, dp=2, world=2, smi=smi, nccl=True,
+                                reference=flagship_ref)
     sharded_sites += run_sharded("sharded_sp", get_model_config("viewcrafter_16"), dp=1,
                                  world=2, smi=smi)
     sharded_sites += run_sharded_wiring(gen)
+    # tensor parallelism: the flagship's UNet over 2 ranks against the same
+    # reference, then every kernel on local slices at dp 2 x sp 2 x tp 2
+    tp_rank_sites = run_sharded("sharded_tp", flagship, dp=1, world=2, smi=smi, nccl=True, tp=2,
+                                reference=flagship_ref)
+    sharded_sites += tp_rank_sites
+    sharded_sites += run_sharded_wiring(gen, "sharded_tp_wiring", tp_wiring_config(), world=8,
+                                        tp=2, routes=True)
 
     # every kernel is held against its twin at every shape any driven path
     # launched it with (the wiring runs included); GroupNorm also at one
@@ -1698,7 +1782,7 @@ def main() -> int:
     sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites,
                         *sharded_sites, *(s["all"] for s in (main_sites, routes_sites, *pab_sites,
                                                              long_sites, op_sites)))
-    sites["group_norm_fused"][(2, 9216, 320, 4, 1)] = 0
+    sites["group_norm_fused"][(2, 9216, 320, 32, 4, 1)] = 0
     emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})
     path_res = {"main": main_res, "routes": routes_res, "long": long_res, "op": op_res}
     path_sites = {"main": main_sites, "routes": routes_sites, "long": long_sites, "op": op_sites}
@@ -1743,6 +1827,16 @@ def main() -> int:
                               "mufu_bound_ms")}}
         for r in results["fullkv_attention"]
         if not r["variant"] and any(tuple(r["site"]) in geo for _, _, geo in dust3r_passes)]
+    # the main path's kernels at the local heads and widths of `sharded_tp`'s
+    # ranks, with the launches of both ranks together
+    tp_launches = merge_sites(*tp_rank_sites)
+    for row in rows:
+        on_tp = tp_launches.get(row["name"], {})
+        row["tp_sites"] = [
+            {"site": r["site"], "launches_all_ranks": on_tp[tuple(r["site"])],
+             **{k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "tol")}}
+            for r in results[row["name"]] if not r["variant"] and tuple(r["site"]) in on_tp]
     emit({"kernels": rows})
     emit({"phase": "end", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -130,6 +130,26 @@ def test_temporal_layer_kernel(gen, b, t, s, h, d, w_mul):
     assert torch.equal(got, temporal_layer.fused_temporal_layer(*args, heads=h, dim_head=d))
 
 
+@pytest.mark.parametrize("b,t,s,c,h,d", [
+    (2, 25, 36, 320, 3, 64), (2, 25, 36, 320, 2, 64), (1, 8, 13, 256, 1, 128),
+    (2, 25, 150, 640, 5, 64), (2, 25, 144, 1280, 10, 64), (1, 5, 24, 96, 2, 64)])
+def test_temporal_layer_kernel_at_local_heads(gen, b, t, s, c, h, d):
+    """A tensor-parallel rank's call: the attention width inner = h * d
+    apart from the model width C (the flagship's 5 heads at ds1 split 3/2,
+    its 10 and 20 at ds2 and ds4 split 5/5 and 10/10; inner > C too): Wqkv
+    (3 inner, C), Wo (C, inner)."""
+    inner = h * d
+    args = (_randn(gen, b, t, s, c), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
+            _randn(gen, c, scale=0.1, dtype=torch.float32),
+            _randn(gen, 3 * inner, c, scale=c ** -0.5),
+            _randn(gen, c, inner, scale=inner ** -0.5), _randn(gen, c, scale=0.1))
+    n0 = temporal_layer.launches
+    got = temporal_layer.fused_temporal_layer(*args, heads=h, dim_head=d)
+    assert temporal_layer.launches == n0 + 1
+    assert (b, t, s, c, h, d) in temporal_layer.sites
+    _assert_close(got, temporal_layer.fused_temporal_layer_plain(*args, heads=h, dim_head=d))
+
+
 @pytest.mark.parametrize("n,s,c,dtype,silu,eps", [
     (2, 100, 64, torch.bfloat16, True, 1e-5), (3, 50, 320, torch.float32, False, 1e-6),
     (1, 7, 32, torch.float32, True, 1e-5), (2, 230400, 320, torch.bfloat16, False, 1e-6),
@@ -269,6 +289,22 @@ def test_sharded_cfg_dp_wiring_matches_unsharded(gen):
 
     sites = run_sharded("sharded_wiring_cfg_dp", wiring_config(8), dp=2, world=2, smi="")
     assert len(sites) == 2 and all(s["fullkv_attention"] for s in sites)
+
+
+def test_sharded_tp_wiring_matches_unsharded(gen):
+    """Tensor parallelism on the card: the 192-channel wiring config (3
+    heads at the 16x16 level, split 2/1) with the UNet over tp as 2 gloo
+    ranks sharing cuda:0 (dp 1 x tp 2), against the unsharded run on the
+    card at chip_smoke.py's tolerance; every main-path kernel launched in
+    both ranks as often per UNet eval as unsharded."""
+    from chip_smoke import run_sharded, tp_wiring_config
+
+    sites = run_sharded("sharded_wiring_tp", tp_wiring_config(), dp=1, world=2, smi="", tp=2)
+    assert len(sites) == 2
+    # the UNet's sites (the VAE's one-head attention runs at batch 1): the
+    # 16x16 level's 3 heads split 2/1, the 8x8 level's 6 split 3/3
+    heads = [{site[3] for site in s["fullkv_attention"] if site[0] > 1} for s in sites]
+    assert heads == [{2, 3}, {1, 3}]
 
 
 def test_native_ply_writer_on_the_cards_machine(gen, tmp_path):

@@ -64,12 +64,22 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
-    # the causal mask, the relative-position bias (tests/test_torch_relpos.py)
-    # and multi-device sampling over dp and sp (tests/test_torch_parallel.py)
-    # are ported; tensor parallelism is not
-    from viewcrafter_tpu_torch.pipeline import InferenceOptions, ViewCrafterPipeline
+    # the causal mask, the relative-position bias (tests/test_torch_relpos.py),
+    # multi-device sampling over dp and sp (tests/test_torch_parallel.py) and
+    # tensor parallelism (tests/test_torch_tp.py) are ported: the CLI and the
+    # pipeline take mesh_tp, and without a process group of mesh_devices
+    # ranks only the missing group raises
+    import dataclasses
 
-    opts = InferenceOptions(model="viewcrafter_tiny", dust3r_model="dust3r_tiny", mesh_devices=2,
-                            mesh_tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    from viewcrafter_tpu_torch.cli import get_parser, opts_from_args
+    from viewcrafter_tpu_torch.pipeline import ViewCrafterPipeline
+
+    opts = opts_from_args(get_parser().parse_args(
+        ["--image_dir", "test/images/fruit.png", "--model", "viewcrafter_tiny",
+         "--dust3r_model", "dust3r_tiny", "--mesh_devices", "2", "--mesh_tp", "2"]))
+    assert (opts.mesh_devices, opts.mesh_tp) == (2, 2)
+    with pytest.raises(RuntimeError, match="torchrun"):
         ViewCrafterPipeline(opts, init_models=False, device="cpu")
+    pipe = ViewCrafterPipeline(dataclasses.replace(opts, mesh_devices=0), init_models=False,
+                               device="cpu")
+    assert pipe._sample_mesh(1) is None  # one device: the serial loop

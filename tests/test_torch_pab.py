@@ -290,19 +290,44 @@ def test_generate_staged_reuse_differs_from_exact_sampling(setup):
 
 
 def test_unported_staged_options_raise(setup):
-    _, _, teng, _, _, frames, ids, uids = setup
+    """Tensor parallelism is ported (tests/test_torch_tp.py), attention reuse
+    under it included: the denoise programs of a tp axis (two threads in
+    for the ranks, `torch_parity.run_tp_threads`) collect the all-reduced
+    outputs and reuse them as the unsharded programs do, to rounding (the
+    same math in another summation order: 1e-4). What still raises: a tp
+    mesh that does not factor the devices, a tp that does not divide the
+    UNet's 32 GroupNorm groups (a stand-in mesh with the attributes
+    `parallel.mesh.axis` reads), and an unknown cache dtype."""
+    _, _, teng, cfg, inp, frames, ids, uids = setup
     args = (torch.from_numpy(frames), torch.from_numpy(ids).long(), torch.from_numpy(uids).long())
-    # sharding over dp and sp is ported (tests/test_torch_parallel.py);
-    # tensor parallelism is not: no tp mesh is built, and generate_staged
-    # refuses one (a stand-in with the mesh's two attributes)
     from types import SimpleNamespace
 
-    from viewcrafter_tpu_torch.parallel.mesh import make_mesh
+    from viewcrafter_tpu_torch.parallel.mesh import NO_AXIS, make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_mesh(2, dp=1, tp=2)
-    tp_mesh = SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=(1, 1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        teng.generate_staged(*args, steps=2, mesh=tp_mesh)
+    with pytest.raises(ValueError, match="cannot factor"):
+        make_mesh(2, dp=1, tp=3)
+    tp3_mesh = SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=(1, 1, 3),
+                               get_group=lambda name: None, get_local_rank=lambda name: 0)
+    with pytest.raises(ValueError, match="32 GroupNorm groups"):
+        teng.generate_staged(*args, steps=2, mesh=tp3_mesh)
     with pytest.raises(KeyError):
         teng.generate_staged(*args, steps=2, attn_reuse_interval=2, attn_reuse_dtype="f4")
+
+    z_cond = torch.zeros((1, cfg.video_length) + cfg.diffusion.latent_size + (4,))
+    contexts = _t(inp["ctx"])[:, None]
+    x_k, t_k = _t(inp["x"][..., :4]), _t(inp["ts"])
+
+    def programs(head_axis):
+        _, d_full, d_reuse = teng._denoise_fn(z_cond, contexts, 10.0, GuidanceConfig(),
+                                              cache_sites=DS1_SITES, head_axis=head_axis)
+        with torch.no_grad():
+            v, cache = d_full(x_k, t_k)
+            return v, cache, d_reuse(x_k, t_k, cache)
+
+    v, cache, v_reuse = programs(NO_AXIS)
+    tp_v, tp_cache, tp_reuse = tp.run_tp_threads(programs, 2)[0]
+    assert set(tp_cache) == set(cache) and len(cache) > 0
+    for name, val in cache.items():
+        assert tp.max_err(tp_cache[name].numpy(), val.numpy()) <= 1e-4, name
+    assert tp.max_err(tp_v.numpy(), v.numpy()) <= 1e-4
+    assert tp.max_err(tp_reuse.numpy(), v_reuse.numpy()) <= 1e-4

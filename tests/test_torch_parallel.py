@@ -7,7 +7,9 @@ and against the port's single-device run, on `viewcrafter_tiny` in float32,
   - CFG-branch dp: batch 1 on 2 ranks, its two guidance branches over dp;
   - dp x sp: batch 2, 4 frames on 4 ranks (dp 2 x sp 2);
 then `ViewCrafterPipeline.run_diffusion` with mesh_devices=2 and n_samples=2
-against the JAX pipeline's, and the port's own dry run on 4 ranks.
+against the JAX pipeline's, and the port's own dry run on 4 ranks (its
+dp 2 x tp 2 case included; the rest of tensor parallelism is in
+tests/test_torch_tp.py).
 
 The JAX draws are carried over as explicit noise (`torch_parity.jax_noise`).
 Tolerances: against JAX, the float32 `generate` parity bound of
@@ -70,9 +72,10 @@ def setup(tmp_path_factory):
             mesh=jax_make_mesh(world, devices=cpus[:world])), np.float32)
         noise = tp.jax_noise(key, frames.shape, STEPS, cfg.vae.z_channels,
                              cfg.vae.downsample_factor)
-        runs[name] = (frames, ids.astype(np.int64), uids.astype(np.int64),
-                      tuple(a.numpy() for a in (noise.x_T, noise.steps, noise.posterior)),
-                      dict(steps=STEPS, guidance=GuidanceConfig(), fs=FS, chunk=STEPS), {})
+        runs[name] = _dryrun.Run(
+            frames, ids.astype(np.int64), uids.astype(np.int64),
+            tuple(a.numpy() for a in (noise.x_T, noise.steps, noise.posterior)),
+            dict(steps=STEPS, guidance=GuidanceConfig(), fs=FS, chunk=STEPS), {})
     port = {}
     for world in sorted({w for _, w in CASES.values()}):
         names = [n for n, (_, w) in CASES.items() if w == world]
@@ -141,16 +144,23 @@ def test_sharded_run_diffusion_matches_jax_pipeline(setup):
 
 
 def test_port_dryrun_on_four_ranks():
-    """`python -m viewcrafter_tpu_torch._dryrun 4`: sample dp, CFG-branch dp
-    and frame sp on gloo CPU ranks, each within 2e-5 of single-device."""
+    """`python -m viewcrafter_tpu_torch._dryrun 4`: sample dp, CFG-branch dp,
+    frame sp and dp 2 x tp 2 (CFG-branch dp with the UNet's heads and
+    channels over tp, in float64) on gloo CPU ranks, each within 2e-5 of
+    single-device."""
     errs = _dryrun.inference_dryrun(4, timeout=SPAWN_TIMEOUT)
-    assert set(errs) == {"sample_dp", "cfg_branch_dp", "frame_sp"}
+    assert set(errs) == {"sample_dp", "cfg_branch_dp", "frame_sp", "dp_sp_tp"}
     assert all(e <= PORT_TOL for e in errs.values())
 
 
 def test_tensor_parallelism_and_a_small_group_raise():
+    """Tensor parallelism is ported (tests/test_torch_tp.py): a tp mesh that
+    does not factor the device count raises, and a pipeline with mesh_tp = 2
+    gets as far as the missing process group."""
     opts = dict(model="viewcrafter_tiny", dust3r_model="dust3r_tiny")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="cannot factor"):
+        pm.make_mesh(2, dp=1, tp=3)
+    with pytest.raises(RuntimeError, match="torchrun"):
         ViewCrafterPipeline(InferenceOptions(mesh_devices=2, mesh_tp=2, **opts),
                             init_models=False, device="cpu")
     # no process group: one rank, fewer than mesh_devices

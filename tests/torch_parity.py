@@ -5,7 +5,11 @@ rebuilt as plain arrays for the port's explicit-noise argument."""
 
 from __future__ import annotations
 
+import concurrent.futures
+import copy
+import dataclasses
 import functools
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,8 @@ from viewcrafter_tpu.pipeline import ViewCrafterPipeline as JaxPipeline
 from viewcrafter_tpu_torch.config import get_model_config
 from viewcrafter_tpu_torch.convert import dust3r_from_jax_params, from_jax_params
 from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDiffusionEngine
+from viewcrafter_tpu_torch.parallel.mesh import Axis
+from viewcrafter_tpu_torch.parallel.tp import shard_unet_
 from viewcrafter_tpu_torch.pipeline import ViewCrafterPipeline
 
 # torch's CPU threads stay modest: the suite runs in several workers at once
@@ -137,3 +143,67 @@ def pipelines_f32(jax_opts, port_opts):
                       from_jax_params({k: numpy_tree(getattr(jp.lvdm_params, k))
                                        for k in SUBMODELS}))
     return jp, tpipe
+
+
+@dataclasses.dataclass(frozen=True)
+class ThreadAxis(Axis):
+    """A "tp" axis whose ranks are threads of this process: `sum` adds the
+    threads' partials in index order (`run_tp_threads`), in place of the
+    all-reduce of a process group."""
+
+    exchange: object = None
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.exchange.sum(self.index, x)
+
+
+class _Exchange:
+    def __init__(self, n: int, timeout: float):
+        self.barrier = threading.Barrier(n, timeout=timeout)
+        self.parts = [None] * n
+
+    def sum(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        self.parts[i] = x
+        self.barrier.wait()
+        total = self.parts[0]
+        for part in self.parts[1:]:
+            total = total + part
+        self.barrier.wait()  # every thread has read the parts before the next sum
+        return total
+
+
+def run_tp_threads(fn, size: int, timeout: float = 120.0) -> list:
+    """fn(axis) for each index of a `size`-wide ThreadAxis, each in a thread
+    of its own under no_grad; the results in index order. A thread that
+    raises breaks the others' barrier and the call raises its error."""
+    ex = _Exchange(size, timeout)
+
+    def run(i):
+        try:
+            with torch.no_grad():
+                return fn(ThreadAxis(None, size, i, ex))
+        except BaseException:
+            ex.barrier.abort()
+            raise
+
+    with concurrent.futures.ThreadPoolExecutor(size) as pool:
+        futures = [pool.submit(run, i) for i in range(size)]
+    errors = [f.exception() for f in futures if f.exception() is not None]
+    if errors:  # the cause, not the barrier it broke in the other threads
+        raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return [f.result() for f in futures]
+
+
+def shard_copies(module: torch.nn.Module, size: int) -> list:
+    """`size` copies of `module`, copy i cut to index i of a `size`-wide
+    "tp" axis (`parallel/tp.py`); the axis is set per call (`set_axis`)."""
+    return [shard_unet_(copy.deepcopy(module), Axis(None, size, i)) for i in range(size)]
+
+
+def set_axis(module: torch.nn.Module, axis: Axis) -> torch.nn.Module:
+    """Point every split module of a cut `module` at `axis`."""
+    for mod in module.modules():
+        if "tp" in vars(mod):
+            mod.tp = axis
+    return module

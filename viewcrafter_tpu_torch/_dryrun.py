@@ -12,13 +12,24 @@ the JAX package's bound, atol 2e-5:
   2. CFG-branch dp: batch 1 on the same mesh, its K = 2 guidance branches
      over dp;
   3. frame sp alone: batch 1 on `make_mesh(N, dp=1)`, frames over all N
-     ranks.
+     ranks;
+  4. tensor parallelism (N a multiple of 4): batch 1 on
+     `make_mesh(N, dp=2, tp=2)`, the UNet's heads and channels over tp
+     (`parallel/tp.py`) inside CFG-branch dp and, from N = 8, frame sp: the
+     JAX dry run's dp x sp x tp check (dp 2 x tp 2 at N = 4, dp 2 x sp 2 x
+     tp 2 at N = 8), in float64 (`TP_DTYPE`).
 Frames are padded up to a multiple of the meshes' sp, as in the JAX dry run,
 with at least two frames a rank. The ranks run MKL in its batch-invariant
 mode (`batch_invariant_cpu`), and rank 0 computes the single-device run in
-its own process with the same setting.
-The JAX dry run's training step and its tensor-parallel check wait for their
-slices of the port (ROADMAP.md).
+its own process with the same setting, so runs 1-3 match it to the bit.
+Sharding over tp splits the UNet's sums (a row-parallel product is the sum
+of the ranks' partial products), which no setting makes bit-equal to the
+unsharded product; and in float32 this model's own rounding, amplified by
+CFG over the steps, moves the video by about 3e-5 against a float64 run
+(the inputs of run 2; tests/test_torch_tp.py holds it above ATOL). So run 4
+builds its engines in float64 (the norms and softmax still compute in
+float32 inside), where tp lands well within ATOL of the single-device run. The JAX dry run's training step waits
+for its slice of the port (ROADMAP.md).
 
 `generate_on_mesh` and `diffuse_on_mesh` are also the rank targets of
 tests/test_torch_parallel.py.
@@ -39,17 +50,35 @@ from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDif
 from viewcrafter_tpu_torch.parallel import mesh as pm
 from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
-ATOL = 2e-5  # the JAX dry run's bound, float32 on the CPU
+ATOL = 2e-5  # the JAX dry run's bound, on the CPU
+TP_DTYPE = torch.float64  # the engines of the tensor-parallel runs (module docstring)
 STEPS = 2
 SEED = 7
 THREADS = 2  # torch threads a rank: the ranks share the machine's cores
 
 
-def engine_on_rank(cfg: ModelConfig, state: Optional[dict]) -> VideoDiffusionEngine:
-    """The engine every rank builds, on the CPU in float32: `state`
+@dataclasses.dataclass
+class Run:
+    """One sharded `generate_staged` of `generate_on_mesh`: inputs as numpy
+    (frames, ids, uids; `noise` the three draws x_T, steps, posterior, or
+    None to draw from a generator seeded with SEED), generate kwargs, the
+    `make_mesh` kwargs, and the engines' dtype."""
+
+    frames: np.ndarray
+    ids: np.ndarray
+    uids: np.ndarray
+    noise: Optional[tuple]
+    kwargs: dict
+    mesh_kw: dict
+    dtype: torch.dtype = torch.float32
+
+
+def engine_on_rank(cfg: ModelConfig, state: Optional[dict],
+                   dtype: torch.dtype = torch.float32) -> VideoDiffusionEngine:
+    """The engine every rank builds, on the CPU in `dtype`: `state`
     ({submodel: {name: numpy}}) if given, else seeded weights; raises unless
     all ranks hold the same."""
-    eng = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu")
+    eng = VideoDiffusionEngine(cfg, dtype=dtype, device="cpu")
     if state is None:
         eng.init_params(seed=0)
     else:
@@ -74,27 +103,27 @@ def batch_invariant_cpu() -> None:
 
 
 def generate_on_mesh(cfg: ModelConfig, state: Optional[dict], runs: list) -> list:
-    """Rank target: build the engine on the CPU in float32 (`engine_on_rank`)
-    with batch-invariant kernels (`batch_invariant_cpu`) and, for each run
-    (frames, ids, uids, noise, generate kwargs, mesh kwargs), the sharded
-    `generate_staged` on `make_mesh(**mesh kwargs)` over CPU ranks. `noise`:
-    the three draws' numpy arrays (x_T, steps, posterior), or None to draw
-    from a generator seeded with SEED. Returns [(video, single-device video
-    or None)] as numpy: the single-device run, with the same weights and
-    draws in the same process, on rank 0."""
+    """Rank target: with batch-invariant kernels (`batch_invariant_cpu`),
+    for each `Run` the engine of its dtype on the CPU (`engine_on_rank`, built once per dtype) and the sharded
+    `generate_staged` on `make_mesh(**run.mesh_kw)` over CPU ranks. Returns
+    [(video, single-device video or None)] as numpy: the single-device run,
+    with the same weights and draws in the same process, on rank 0."""
     batch_invariant_cpu()
     torch.set_num_threads(THREADS)
-    eng = engine_on_rank(cfg, state)
+    engines = {}
     out = []
-    for frames, ids, uids, noise, kwargs, mesh_kw in runs:
-        mesh = pm.make_mesh(devices=["cpu"] * pm.world_size(), **mesh_kw)
-        args = [torch.from_numpy(a) for a in (frames, ids, uids)]
+    for spec in runs:
+        if spec.dtype not in engines:
+            engines[spec.dtype] = engine_on_rank(cfg, state, spec.dtype)
+        eng, noise, frames = engines[spec.dtype], spec.noise, spec.frames
+        mesh = pm.make_mesh(devices=["cpu"] * pm.world_size(), **spec.mesh_kw)
+        args = [torch.from_numpy(a) for a in (frames, spec.ids, spec.uids)]
 
         def run(mesh):
             noise_t = None if noise is None else GenerateNoise(*map(torch.from_numpy, noise))
             return eng.generate_staged(*args, mesh=mesh, noise=noise_t,
                                        generator=torch.Generator().manual_seed(SEED),
-                                       **kwargs).numpy()
+                                       **spec.kwargs).numpy()
 
         video = run(mesh)
         if frames.shape[0] % pm.mesh_shape(mesh)["dp"] == 0:  # the helpers' round trip
@@ -127,7 +156,7 @@ def diffuse_on_mesh(opts, state: dict, frames01, noise) -> tuple:
 
 
 def dryrun_runs(n: int, cfg: ModelConfig):
-    """(config with frames padded to every mesh's sp, the three runs)."""
+    """(config with frames padded to every mesh's sp, the runs)."""
     dp = 2 if n % 2 == 0 and n > 1 else 1
     # a multiple of both meshes' sp, two frames a rank or more (batch_invariant_cpu)
     t = -(-max(cfg.video_length, 2 * n) // n) * n
@@ -141,14 +170,16 @@ def dryrun_runs(n: int, cfg: ModelConfig):
         return frames, ids, np.zeros((b, 77), np.int64)
 
     kwargs = dict(steps=STEPS, guidance=GuidanceConfig(scale=7.5), fs=10, chunk=1)
-    runs = {"sample_dp": (*inputs(dp), None, kwargs, {}),
-            "cfg_branch_dp": (*inputs(1), None, kwargs, {}),
-            "frame_sp": (*inputs(1), None, kwargs, {"dp": 1})}
+    runs = {"sample_dp": Run(*inputs(dp), None, kwargs, {}),
+            "cfg_branch_dp": Run(*inputs(1), None, kwargs, {}),
+            "frame_sp": Run(*inputs(1), None, kwargs, {"dp": 1})}
+    if n % 4 == 0:
+        runs["dp_sp_tp"] = Run(*inputs(1), None, kwargs, {"dp": 2, "tp": 2}, TP_DTYPE)
     return cfg, runs
 
 
 def inference_dryrun(n: int, timeout: float = 600.0) -> dict:
-    """The three sharded runs on n gloo CPU ranks, each held against the
+    """The sharded runs on n gloo CPU ranks, each held against the
     single-device run at ATOL; returns {run: max abs error}."""
     cfg, runs = dryrun_runs(n, get_model_config("viewcrafter_tiny"))
     results = pm.spawn(generate_on_mesh, n, "gloo", devices=["cpu"] * n,
@@ -171,8 +202,8 @@ def inference_dryrun(n: int, timeout: float = 600.0) -> dict:
 
 def main(n: int) -> None:
     errs = inference_dryrun(n)
-    print(f"sharded inference ok on {n} gloo CPU ranks (sample dp, CFG-branch dp and frame "
-          f"sp against single-device, atol {ATOL}): "
+    print(f"sharded inference ok on {n} gloo CPU ranks (sample dp, CFG-branch dp, frame "
+          f"sp{' and dp x sp x tp' if n % 4 == 0 else ''} against single-device, atol {ATOL}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
 
 

@@ -26,10 +26,18 @@ Multi-device sampling, one process per card:
   torchrun --nproc_per_node 2 -m viewcrafter_tpu_torch.cli \
       --image_dir test/images/fruit.png --mode single_view_target --mesh_devices 2
 
+and with the UNet's heads and channels split over the ranks (tensor
+parallelism; `--mesh_tp` must divide `--mesh_devices` and the UNet's 32
+GroupNorm groups, and the rest of the ranks take samples or CFG branches):
+
+  torchrun --nproc_per_node 2 -m viewcrafter_tpu_torch.cli \
+      --image_dir test/images/fruit.png --mode single_view_target --mesh_devices 2 \
+      --mesh_tp 2
+
 Under torchrun (WORLD_SIZE > 1) the CLI joins the process group over
 `--dist_backend` (nccl, one card per rank; gloo for the CPU or for ranks that
 share a card) before it builds the pipeline. Rank 0 runs the geometry and
-writes every artifact. `--mesh_tp` > 1 (tensor parallelism) is not ported.
+writes every artifact.
 """
 
 from __future__ import annotations
@@ -114,7 +122,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help=">1: shard n_samples (or a single sample's CFG branches) over that "
                         "many ranks; run under torchrun --nproc_per_node N")
     p.add_argument("--mesh_tp", type=int, default=1,
-                   help="tensor-parallel width (not ported; > 1 raises)")
+                   help="tensor-parallel width: the UNet's heads and channels over that many "
+                        "of the mesh_devices ranks (divides mesh_devices and 32)")
     p.add_argument("--dist_backend", type=str, default="nccl", choices=["nccl", "gloo"],
                    help="the process group's backend under torchrun: nccl (one card per "
                         "rank) or gloo (the CPU, or ranks that share a card)")

@@ -2,16 +2,21 @@
 // frames of each (pixel, head) -> out projection + bias (no residual).
 // Replaces viewcrafter_tpu/ops/pallas/temporal_layer.py:fused_temporal_layer.
 //
+// The model width C and the attention width inner = heads * D are apart:
+// Wqkv is (3 inner, C) and Wo (C, inner). Unsharded inner == C; a tensor-
+// parallel rank holds a block of the heads (inner < C), and its output is a
+// partial sum of the out projection.
+//
 // Four launches:
 //  1. the LayerNorm (common.cuh: f32 statistics, bf16 out) into xn (N, C);
 //  2. the QKV product xn Wqkv^T on the GEMM core (gemm_sm90.cuh: TMA,
-//     mbarrier ring, wgmma, persistent), Q|K|V rounded to bf16 into (N, 3C),
-//     rows (b, t, s);
-//  3. the frame attention on the tensor cores (below) into att (N, C);
+//     mbarrier ring, wgmma, persistent), Q|K|V rounded to bf16 into
+//     (N, 3 inner), rows (b, t, s);
+//  3. the frame attention on the tensor cores (below) into att (N, inner);
 //  4. the out projection att Wo^T on the GEMM core, the bias added in bf16
 //     (bf16(acc) + bo, as the TPU kernel).
 //
-// The frame attention. Q|K|V is mapped as a 4-D tensor (3C columns, T
+// The frame attention. Q|K|V is mapped as a 4-D tensor (3 inner columns, T
 // frames, S pixels, B): frames inside pixels, the reverse of its memory
 // order, so that one TMA box (64 columns, 32 frames, TL_PIX pixels) lands in
 // shared memory as one block of 32 rows per pixel, the frames past T
@@ -151,7 +156,8 @@ __device__ __forceinline__ void frame_attention_warp(unsigned char* sq, unsigned
 template <int D>
 __global__ void __launch_bounds__(TL_THREADS)
 frame_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
-                       const __grid_constant__ CUtensorMap map_att, int T, int C, float scale) {
+                       const __grid_constant__ CUtensorMap map_att, int T, int inner,
+                       float scale) {
   using Sh = FrameTile<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
@@ -170,8 +176,8 @@ frame_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
     for (int pn = 0; pn < D / 64; ++pn) {
       const int col = h * D + pn * 64;
       tma_load_4d(sq + pn * Sh::PANEL, map_qkv, bar, col, 0, s0, b);
-      tma_load_4d(sk + pn * Sh::PANEL, map_qkv, bar, C + col, 0, s0, b);
-      tma_load_4d(sv + pn * Sh::PANEL, map_qkv, bar, 2 * C + col, 0, s0, b);
+      tma_load_4d(sk + pn * Sh::PANEL, map_qkv, bar, inner + col, 0, s0, b);
+      tma_load_4d(sv + pn * Sh::PANEL, map_qkv, bar, 2 * inner + col, 0, s0, b);
     }
   }
   __syncthreads();  // the barrier is initialised before anyone waits on it
@@ -194,13 +200,14 @@ frame_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
 
 template <int D>
 cudaError_t launch_frame_attention(const CUtensorMap& map_qkv, const CUtensorMap& map_att, int B,
-                                   int T, int S, int C, float scale, cudaStream_t stream) {
+                                   int T, int S, int inner, float scale, cudaStream_t stream) {
   using Sh = FrameTile<D>;
   static bool smem_set[64];
   cudaError_t err = allow_smem_once((const void*)frame_attention_kernel<D>, (int)Sh::SMEM, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(C / D), (unsigned)((S + TL_PIX - 1) / TL_PIX), (unsigned)B);
-  frame_attention_kernel<D><<<grid, TL_THREADS, Sh::SMEM, stream>>>(map_qkv, map_att, T, C, scale);
+  dim3 grid((unsigned)(inner / D), (unsigned)((S + TL_PIX - 1) / TL_PIX), (unsigned)B);
+  frame_attention_kernel<D><<<grid, TL_THREADS, Sh::SMEM, stream>>>(map_qkv, map_att, T, inner,
+                                                                     scale);
   return cudaGetLastError();
 }
 
@@ -212,36 +219,40 @@ extern "C" int vc_temporal_layer(const void* x, const void* ln_w, const void* ln
                                  int heads, int D, float eps, float scale, void* stream) {
   using namespace vc;
   constexpr int BN = 160;
-  if (T < 1 || T > TL_FRAMES || (D != 64 && D != 128) || heads * D != C ||
+  const int inner = heads * D;
+  if (T < 1 || T > TL_FRAMES || (D != 64 && D != 128) || heads < 1 || C < 8 || C % 8 ||
       (S + TL_PIX - 1) / TL_PIX > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * S;
   CUtensorMap m_xn, m_wqkv, m_qkv, m_att_out, m_att, m_wo;
   // Q|K|V and att as (columns, T, S, B): frames inside pixels
-  const long qkv_dims[4] = {3L * C, T, S, B}, qkv_strides[3] = {3L * C * S, 3L * C, 3L * C * S * T};
-  const long att_dims[4] = {C, T, S, B}, att_strides[3] = {(long)C * S, C, (long)C * S * T};
+  const long qkv_dims[4] = {3L * inner, T, S, B},
+             qkv_strides[3] = {3L * inner * S, 3L * inner, 3L * inner * S * T};
+  const long att_dims[4] = {inner, T, S, B},
+             att_strides[3] = {(long)inner * S, inner, (long)inner * S * T};
   const int box[4] = {64, TL_FRAMES, TL_PIX, 1};
   cudaError_t err = make_panel_map(&m_xn, xn, C, M, 1, C, G_BM);
-  if (err == cudaSuccess) err = make_panel_map(&m_wqkv, wqkv, C, 3L * C, 1, C, BN);
+  if (err == cudaSuccess) err = make_panel_map(&m_wqkv, wqkv, C, 3L * inner, 1, C, BN);
   if (err == cudaSuccess) err = make_map(&m_qkv, qkv, 4, qkv_dims, qkv_strides, box);
   if (err == cudaSuccess) err = make_map(&m_att_out, att, 4, att_dims, att_strides, box);
-  if (err == cudaSuccess) err = make_panel_map(&m_att, att, C, M, 1, C, G_BM);
-  if (err == cudaSuccess) err = make_panel_map(&m_wo, wo, C, C, 1, C, BN);
+  if (err == cudaSuccess) err = make_panel_map(&m_att, att, inner, M, 1, inner, G_BM);
+  if (err == cudaSuccess) err = make_panel_map(&m_wo, wo, inner, C, 1, inner, BN);
   if (err == cudaSuccess)
     err = launch_ln_apply(static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
                           static_cast<const float*>(ln_b), static_cast<bf16*>(xn), M, C, eps, s);
   if (err != cudaSuccess) return (int)err;
 
-  const int row_blocks = (int)((M + G_BM - 1) / G_BM), panels = (C + 63) / 64;
-  err = launch_gemm_sm90<BN>(m_xn, m_wqkv, GemmTiles{1, M, row_blocks, (3 * C + BN - 1) / BN},
-                             LoadPlain<BN>{panels},
-                             EpiBiasOut<BN>{static_cast<bf16*>(qkv), nullptr, M, 3 * C, BIAS_NONE}, s);
+  const int row_blocks = (int)((M + G_BM - 1) / G_BM);
+  err = launch_gemm_sm90<BN>(m_xn, m_wqkv, GemmTiles{1, M, row_blocks, (3 * inner + BN - 1) / BN},
+                             LoadPlain<BN>{(C + 63) / 64},
+                             EpiBiasOut<BN>{static_cast<bf16*>(qkv), nullptr, M, 3 * inner,
+                                            BIAS_NONE}, s);
   if (err != cudaSuccess) return (int)err;
-  err = D == 64 ? launch_frame_attention<64>(m_qkv, m_att_out, B, T, S, C, scale, s)
-                : launch_frame_attention<128>(m_qkv, m_att_out, B, T, S, C, scale, s);
+  err = D == 64 ? launch_frame_attention<64>(m_qkv, m_att_out, B, T, S, inner, scale, s)
+                : launch_frame_attention<128>(m_qkv, m_att_out, B, T, S, inner, scale, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_gemm_sm90<BN>(
-      m_att, m_wo, GemmTiles{1, M, row_blocks, (C + BN - 1) / BN}, LoadPlain<BN>{panels},
+      m_att, m_wo, GemmTiles{1, M, row_blocks, (C + BN - 1) / BN}, LoadPlain<BN>{(inner + 63) / 64},
       EpiBiasOut<BN>{static_cast<bf16*>(out), static_cast<const bf16*>(bo), M, C, BIAS_ROUND}, s);
 }

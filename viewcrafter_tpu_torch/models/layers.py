@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from viewcrafter_tpu_torch.ops.kernels import ff_layer as _ff
 from viewcrafter_tpu_torch.ops.kernels import groupnorm as _gn
+from viewcrafter_tpu_torch.parallel.mesh import NO_AXIS, Axis
 
 
 def group_norm_silu(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
@@ -122,7 +123,11 @@ class FeedForward(nn.Module):
 
     `ln`: the preceding LayerNormF32, applied inside so that on the card the
     whole branch runs through the `fused_ff_layer` kernels when the JAX
-    package's gate would run its Pallas kernel there."""
+    package's gate would run its Pallas kernel there. `tp`: the hidden
+    split (`parallel/tp.py`): this rank's block of the GEGLU hidden, then
+    one all-reduce of the out product."""
+
+    tp: Axis = NO_AXIS
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -131,6 +136,9 @@ class FeedForward(nn.Module):
         self.out = nn.Linear(self.inner, dim)
 
     def forward(self, x, ln: Optional[LayerNormF32] = None):
+        return self.tp.sum(self._local(x, ln))
+
+    def _local(self, x, ln):
         w1, b1 = self.geglu.proj.weight, self.geglu.proj.bias
         w2, b2 = self.out.weight, self.out.bias
         if (ln is not None and x.is_cuda

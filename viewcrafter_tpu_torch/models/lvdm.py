@@ -9,7 +9,8 @@ The port of the JAX package's models/lvdm.py `VideoDiffusionEngine`:
 `generate_staged` is the same pipeline with the sampling cut into windows
 and, with `attn_reuse_interval` > 1, PAB-style attention reuse, and with a
 `mesh` sharded over several devices (samples or CFG branches over "dp",
-frames over "sp"; `parallel/mesh.py`).
+frames over "sp", the UNet's heads and channels over "tp";
+`parallel/mesh.py`, `parallel/tp.py`).
 
 The engine runs on the card unless the caller asks for the CPU: with
 `device=None` and no CUDA device it raises. Randomness comes from an explicit
@@ -19,6 +20,7 @@ a test can feed the port the numbers the JAX package draws.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional
 
@@ -36,8 +38,8 @@ from viewcrafter_tpu_torch.parallel.mesh import (
     Axis,
     axis,
     gather_video_batch,
-    mesh_shape,
 )
+from viewcrafter_tpu_torch.parallel.tp import shard_unet_
 from viewcrafter_tpu_torch.sampling.ddim import (
     GuidanceConfig,
     ddim_sample_window,
@@ -95,6 +97,7 @@ class VideoDiffusionEngine:
             self.clip_text = CLIPTextEncoder(cfg.clip_text, dtype=dtype)
             self.clip_vision = CLIPVisionEncoder(cfg.clip_vision, dtype=dtype)
             self.resampler = Resampler(cfg.resampler, dtype=dtype)
+        self._tp_unet = None  # (tp axis, the UNet cut to that axis's slice)
         for name in SUBMODELS:
             cast_weights(getattr(self, name), dtype).eval().requires_grad_(False)
         d = cfg.diffusion
@@ -119,6 +122,7 @@ class VideoDiffusionEngine:
         package's init, the zero-initialised output layers get weights too,
         so every branch of the network contributes."""
         g = torch.Generator(device=self.device).manual_seed(seed)
+        self._tp_unet = None
         for name in SUBMODELS:
             init_random_(getattr(self, name), g)
 
@@ -126,8 +130,24 @@ class VideoDiffusionEngine:
     def load_params(self, state: dict) -> None:
         """Load {submodel: state_dict} (e.g. from `convert.from_jax_params`);
         strict, so every port parameter must be set and every entry used."""
+        self._tp_unet = None
         for name in SUBMODELS:
             getattr(self, name).load_state_dict(state[name], strict=True)
+
+    def unet_for(self, head_axis: Axis = NO_AXIS):
+        """The UNet for a "tp" axis: the whole one at tp = 1, else a copy cut
+        to this rank's heads and channels (`parallel/tp.py:shard_unet_`),
+        made once per axis and dropped when the weights change. The whole
+        UNet stays, for unsharded calls."""
+        if head_axis.size == 1:
+            return self.unet
+        cached = self._tp_unet
+        if cached is not None and cached[0] == head_axis:
+            return cached[1]
+        self._tp_unet = None  # free the old slice before the copy
+        net = shard_unet_(copy.deepcopy(self.unet), head_axis)
+        self._tp_unet = (head_axis, net)
+        return net
 
     # ------------------------------------------------------------------
     # building blocks
@@ -184,7 +204,7 @@ class VideoDiffusionEngine:
     def _denoise_fn(self, z_cond, contexts, fs_val: float, guidance: GuidanceConfig,
                     cache_kinds=("spatial", "cross", "temporal"), cache_sites: tuple = (),
                     cache_dtype: str = "bf16", branch_axis: Axis = NO_AXIS,
-                    frame_axis: Axis = NO_AXIS):
+                    frame_axis: Axis = NO_AXIS, head_axis: Axis = NO_AXIS):
         """Returns (denoise, denoise_full, denoise_reuse) over the K stacked
         CFG branches:
           denoise(x_k, t) -> v                          (baseline)
@@ -210,13 +230,18 @@ class VideoDiffusionEngine:
         over the axis before the CFG combine, the path's one collective per
         step. Sequential CFG then runs this rank's rows B at a time, and the
         cache holds this rank's rows only. frame_axis: the "sp" axis when
-        z_cond holds this rank's block of frames (UNet3D's `frames`)."""
+        z_cond holds this rank's block of frames (UNet3D's `frames`).
+        head_axis: the "tp" axis: the UNet calls go to this rank's slice of
+        the UNet (`unet_for`), whose every split module all-reduces its
+        output over the axis; the rows, the cache and the collectives above
+        are as without it."""
         k = guidance.num_branches
         b = z_cond.shape[0]
         store_dtype = CACHE_DTYPES[cache_dtype]
         rows = branch_axis.block(k * b)
         n_rows = rows.stop - rows.start
         prefix = k if branch_axis.size == 1 else 1
+        net = self.unet_for(head_axis)
         ctx_rows = contexts.reshape((k * b,) + contexts.shape[2:])[rows]
         z_rows = z_cond.repeat((k,) + (1,) * (z_cond.ndim - 1))[rows]
         fs_rows = torch.full((n_rows,), fs_val, dtype=torch.float32, device=z_cond.device)
@@ -229,8 +254,8 @@ class VideoDiffusionEngine:
         def unet(x_k, t_batch, part=slice(None), **kw):
             """The UNet on this rank's branch rows (`part` of them)."""
             x, t_b = x_k[rows][part], t_batch[rows][part]
-            return self.unet(torch.cat([x, z_rows[part]], dim=-1), t_b, ctx_rows[part],
-                             fs=fs_rows[part], frames=frame_axis, **kw)
+            return net(torch.cat([x, z_rows[part]], dim=-1), t_b, ctx_rows[part],
+                       fs=fs_rows[part], frames=frame_axis, **kw)
 
         def gather(v):
             return branch_axis.gather(v, 0)
@@ -365,25 +390,24 @@ class VideoDiffusionEngine:
         same `noise` or an equally seeded `generator`). Frames shard over
         "sp"; whole samples shard over "dp" when the batch divides, else (one
         sample on two devices) the K*B guidance-branch rows do (CFG-branch
-        dp, `_denoise_fn`'s branch_axis). Each rank draws or takes the whole
-        batch's noise and keeps its block, VAE-encodes and decodes its own
-        frames and samples its block; the returned video is the whole batch
-        on every rank, as the JAX package returns a global array. Needs
-        frames % sp == 0, and batch % dp == 0 or K*batch % dp == 0; tp > 1
-        is not ported."""
+        dp, `_denoise_fn`'s branch_axis). The UNet's heads and channels
+        shard over "tp" (`parallel/tp.py`: the engine cuts its loaded UNet
+        once per axis), inside each of those blocks. Each rank draws or takes
+        the whole batch's noise and keeps its block, VAE-encodes and decodes
+        its own frames and samples its block; the returned video is the whole
+        batch on every rank, as the JAX package returns a global array.
+        Needs frames % sp == 0, batch % dp == 0 or K*batch % dp == 0, and tp
+        dividing the UNet's 32 GroupNorm groups."""
         b, t = guidance_frames.shape[:2]
         k = guidance.num_branches
-        dp_axis, sp_axis = axis(mesh, "dp"), axis(mesh, "sp")
+        dp_axis, sp_axis, tp_axis = axis(mesh, "dp"), axis(mesh, "sp"), axis(mesh, "tp")
         if mesh is not None:
-            if mesh_shape(mesh)["tp"] > 1:
-                raise NotImplementedError(
-                    "tensor parallelism (tp > 1) is not ported to the PyTorch package yet "
-                    "(see ROADMAP.md)")
             dp, sp = dp_axis.size, sp_axis.size
             if t % sp or (b % dp and (k * b) % dp):
                 raise ValueError(
                     f"sharded generate needs frames {t} % sp {sp} == 0 and either batch {b} % "
                     f"dp {dp} == 0 (sample-dp) or branches*batch {k * b} % dp == 0 (CFG-dp)")
+            self.unet_for(tp_axis)  # cut the UNet (or refuse the axis) before any work
         # CFG-branch dp: a batch that cannot shard over dp (e.g. ONE sample
         # on two devices) spreads its K tiled guidance branches over dp
         cfg_dp = b % dp_axis.size != 0
@@ -401,7 +425,7 @@ class VideoDiffusionEngine:
         denoise, denoise_full, denoise_reuse = self._denoise_fn(
             z_cond, contexts, fs_val, guidance, cache_kinds=attn_reuse_kinds,
             cache_sites=attn_reuse_sites, cache_dtype=attn_reuse_dtype,
-            branch_axis=dp_axis if cfg_dp else NO_AXIS, frame_axis=sp_axis)
+            branch_axis=dp_axis if cfg_dp else NO_AXIS, frame_axis=sp_axis, head_axis=tp_axis)
         if on_stage is not None:
             on_stage("prepare")
         step_noise = noise.steps.to(self.device)

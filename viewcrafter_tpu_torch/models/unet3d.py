@@ -39,6 +39,16 @@ and the conv's 3-frame window), gather the clip's frames over the axis, run
 on all of them, kernels included, and keep this rank's block: the temporal
 work is repeated on every rank of the axis, as the all-gathers XLA inserts
 around those stages in the JAX package amount to.
+
+Tensor parallelism (a "tp" mesh axis, `parallel/tp.py`): `shard_unet_` cuts
+the loaded weights of the split modules (`CrossAttention`,
+`TemporalSelfAttention`, `FeedForward`, `ResBlock`, `TemporalConvBlock`) to
+this rank's heads and channels and sets their `tp` axis; each then runs its
+kernels on its slice and ends its row-parallel product with one all-reduce
+(`tp.sum`), so that what it returns, and what an attention-cache site
+stores, is the whole, replicated output. Under "sp" the tp modules run
+inside the gathered clip. Unsharded, `tp` is NO_AXIS and the sums are the
+identity.
 """
 
 from __future__ import annotations
@@ -73,7 +83,11 @@ class CrossAttention(nn.Module):
     out_img). Self-attention when context is None. With `attn_impl` other
     than "xla", no mask and a shape that passes `supports_dual`, the two
     image-conditioned streams run as one `dual_cross_attention` call (the
-    CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor)."""
+    CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor). `tp`: the
+    head split (`parallel/tp.py`); with no heads left on this rank it adds
+    zeros to the sum."""
+
+    tp: Axis = NO_AXIS
 
     def __init__(self, heads: int, dim_head: int, query_dim: int,
                  context_dim: Optional[int] = None, image_cross_attention: bool = False,
@@ -94,6 +108,13 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Linear(inner, query_dim)
 
     def forward(self, x, context=None, mask=None):
+        if self.heads == 0:
+            return self.tp.sum(x.new_zeros(x.shape[:-1] + (self.to_out.out_features,)))
+        return self.tp.sum(self._local(x, context, mask))
+
+    def _local(self, x, context, mask):
+        """This rank's heads: the whole output unsharded, else a partial sum
+        of the out projection."""
         h, d = self.heads, self.dim_head
         b, n, _ = x.shape
         q = self.to_q(x).view(b, n, h, d)
@@ -256,9 +277,12 @@ class TemporalSelfAttention(nn.Module):
     card the whole layer runs through the `fused_temporal_layer` kernels
     where the JAX package's gate takes its Pallas kernel: never with a mask
     or with `relative_position`, whose tables `rel_k_table` / `rel_v_table`
-    stay float32 under `cast_weights`."""
+    stay float32 under `cast_weights`. `tp`: the head split, as in
+    CrossAttention; the layer kernel then runs at the local attention width
+    (heads * dim_head < C)."""
 
     float32_params = ("rel_k_table", "rel_v_table")
+    tp: Axis = NO_AXIS
 
     def __init__(self, heads: int, dim_head: int, query_dim: int,
                  relative_position: bool = False, temporal_length: int = 0):
@@ -275,6 +299,11 @@ class TemporalSelfAttention(nn.Module):
             self.rel_v_table = nn.Parameter(torch.zeros(2 * temporal_length + 1, dim_head))
 
     def forward(self, x, ln: Optional[LayerNormF32] = None, mask=None):
+        if self.heads == 0:
+            return self.tp.sum(torch.zeros_like(x))
+        return self.tp.sum(self._local(x, ln, mask))
+
+    def _local(self, x, ln, mask):
         b, t, s, c = x.shape
         h, d = self.heads, self.dim_head
         inner = h * d
@@ -284,7 +313,7 @@ class TemporalSelfAttention(nn.Module):
             v2 = _gather_relative(self.rel_v_table, t, t, self.temporal_length)
         fuse = (
             ln is not None and mask is None and k2 is None
-            and c == inner and self.query_dim == c and x.is_cuda
+            and self.query_dim == c and x.is_cuda
             and _tlayer.supports_fused_layer(x.shape, h, d, itemsize=x.element_size())
         )
         if fuse:
@@ -381,7 +410,10 @@ class TemporalConv3(nn.Module):
 class TemporalConvBlock(nn.Module):
     """4x (GroupNorm -> SiLU -> Conv3d(3,1,1)) residual stack; a
     frame-sharded clip (`frames`) is gathered whole and this rank's block
-    kept."""
+    kept. `tp`: conv_0 / conv_2 column-parallel, conv_1 / conv_3 row-parallel,
+    each of those two followed by one all-reduce."""
+
+    tp: Axis = NO_AXIS
 
     def __init__(self, channels: int):
         super().__init__()
@@ -394,11 +426,17 @@ class TemporalConvBlock(nn.Module):
         h = x
         for i in range(4):
             h = getattr(self, f"conv_{i}")(getattr(self, f"norm_{i}")(h))
+            if i % 2:
+                h = self.tp.sum(h)
         return frames.local(x + h, 1)
 
 
 class ResBlock(nn.Module):
-    """GN-SiLU-conv, +time-emb, GN-SiLU-conv, skip; then temporal convs."""
+    """GN-SiLU-conv, +time-emb, GN-SiLU-conv, skip; then temporal convs.
+    `tp`: in_conv and emb_proj column-parallel, out_conv row-parallel and
+    one all-reduce after it."""
+
+    tp: Axis = NO_AXIS
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, use_temporal_conv: bool):
         super().__init__()
@@ -416,7 +454,7 @@ class ResBlock(nn.Module):
         # x: (BT, H, W, C); emb: (BT, D)
         h = self.in_conv(self.in_norm(x))
         h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
-        h = self.out_conv(self.out_norm(h))
+        h = self.tp.sum(self.out_conv(self.out_norm(h)))
         if hasattr(self, "skip"):
             x = self.skip(x)
         h = x + h

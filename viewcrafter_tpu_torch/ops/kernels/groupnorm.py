@@ -54,7 +54,7 @@ import torch
 from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernel
-sites: dict = {}  # (N, S, C, itemsize, with_silu) -> launches at that shape
+sites: dict = {}  # (N, S, C, groups, itemsize, with_silu) -> launches at that shape
 MIN_CHUNK_ROWS = 8
 MAX_CHANNELS = 3840
 
@@ -130,7 +130,7 @@ def group_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         _lib.stream_ptr())
     _lib.check(err, "group_norm_fused")
     launches += 1
-    key = (n, s, c, x.element_size(), int(with_silu))
+    key = (n, s, c, num_groups, x.element_size(), int(with_silu))
     sites[key] = sites.get(key, 0) + 1
     return out
 

@@ -1,3 +1,3 @@
-"""Multi-device sampling on torch.distributed (`mesh.py`): the counterpart of
-the JAX package's `parallel/`. Tensor parallelism (the JAX package's
-`parallel/tp.py`) is not ported yet (see ROADMAP.md)."""
+"""Multi-device sampling on torch.distributed: the counterpart of the JAX
+package's `parallel/`. `mesh.py` holds the ("dp", "sp", "tp") mesh and the
+collectives, `tp.py` the tensor-parallel slicing of the UNet."""

@@ -12,9 +12,11 @@ the model code makes the collectives itself:
     local; each module that reads across frames (the temporal transformers
     and the temporal conv blocks) gathers the clip's frames over "sp", runs
     on all of them and keeps its own (models/unet3d.py);
-  - "tp": tensor parallelism over heads and channels, not ported (see
-    ROADMAP.md).
-Parameters are replicated: every rank builds the same weights.
+  - "tp": tensor parallelism over the UNet's heads and channels: every rank
+    builds the same whole weights, and the engine cuts its UNet to the
+    rank's slice (`parallel/tp.py`); each split module all-reduces its
+    row-parallel product over the axis (`Axis.sum`).
+Every other parameter is replicated.
 
 The process group comes from the torchrun environment (`init_distributed`)
 with the backend its caller names: "nccl" for one card per rank, "gloo" on
@@ -92,22 +94,15 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None, tp: int
               devices: Optional[Sequence] = None) -> DeviceMesh:
     """A ("dp", "sp", "tp") DeviceMesh over the default process group, which
     must hold exactly `n_devices` ranks (default: all of them). The JAX
-    package's factoring rule: dp = 2 when the count is even and > 1, sp the
+    package's factoring rule: dp = 2 when n / tp is even and > 1, sp the
     rest. Rank r sits at (r // (sp * tp), (r // tp) % sp, r % tp), as the
-    JAX package reshapes its device list. `devices`: see `rank_device`; a
-    CUDA device becomes this process's current card."""
-    if tp > 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) is not ported to the PyTorch package yet "
-            "(see ROADMAP.md)")
+    JAX package reshapes its device list, so a tp group is tp consecutive
+    ranks. A count that does not factor raises a ValueError, before the
+    process group is looked at. `devices`: see `rank_device`; a CUDA device
+    becomes this process's current card."""
     world = world_size()
     n = n_devices or world
-    if n != world:
-        raise RuntimeError(
-            f"a mesh of {n} devices needs a process group of {n} ranks, and this one has "
-            f"{world}: start one process per device (torchrun --nproc_per_node {n}) and "
-            "call parallel.init_distributed first")
-    if n % tp:
+    if tp < 1 or n % tp:
         raise ValueError(f"cannot factor {n} devices with tp={tp}")
     n_ds = n // tp
     if dp is None:
@@ -115,6 +110,11 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None, tp: int
     sp = n_ds // dp
     if dp * sp * tp != n:
         raise ValueError(f"cannot factor {n} devices into dp={dp} x sp={sp} x tp={tp}")
+    if n != world:
+        raise RuntimeError(
+            f"a mesh of {n} devices needs a process group of {n} ranks, and this one has "
+            f"{world}: start one process per device (torchrun --nproc_per_node {n}) and "
+            "call parallel.init_distributed first")
     device = rank_device(devices)
     if device.type == "cuda":
         # the mesh picks a card itself unless the process has one already

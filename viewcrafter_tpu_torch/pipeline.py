@@ -34,7 +34,8 @@ guidance frames, and every rank takes part in the sharded `generate_staged`
 (`run_diffusion`). The other ranks wait in `run()` for those calls. Where the
 JAX package falls back to its serial loop because the host has fewer devices
 than `mesh_devices`, the port raises: that fallback would draw other noise
-than the sharded run. Tensor parallelism (`mesh_tp` > 1) is not ported. The
+than the sharded run. With `mesh_tp` > 1 the UNet's heads and channels
+shard over that many ranks of the mesh (`parallel/tp.py`). The
 released checkpoints load where `ckpt_path` / `model_path` exist
 (`setup_models`, through `utils/checkpoint.py`); without them the models hold
 seeded random weights, as the JAX package's dev mode does. With a loaded
@@ -142,7 +143,7 @@ class InferenceOptions:
     attn_reuse_kinds: tuple = ("spatial", "cross", "temporal")
     attn_reuse_dtype: str = "bf16"  # cache storage: "bf16" | "f8"
     mesh_devices: int = 0  # >1: multi-device sampling over that many ranks
-    mesh_tp: int = 1  # >1: tensor parallelism, not ported
+    mesh_tp: int = 1  # >1: tensor-parallel UNet heads/channels (parallel/tp.py)
     # dust3r
     model_path: Optional[str] = None
     batch_size: int = 8  # pairs per decoder call
@@ -160,10 +161,6 @@ class InferenceOptions:
         if name is None:
             name = os.path.splitext(os.path.basename(self.image_dir.rstrip("/")))[0]
         return os.path.join(self.out_dir, name)
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (see ROADMAP.md)")
 
 
 @torch.no_grad()
@@ -201,8 +198,6 @@ class ViewCrafterPipeline:
                  dust3r_cfg: Optional[Dust3rConfig] = None,
                  on_stage: Optional[Callable[[str], None]] = None,
                  dtype: torch.dtype = torch.bfloat16):
-        if opts.mesh_tp > 1:
-            raise not_ported("tensor parallelism (mesh_tp > 1)")
         self.rank, self.world = 0, 1
         if opts.mesh_devices > 1:
             world = pm.world_size()
@@ -524,22 +519,27 @@ class ViewCrafterPipeline:
         return results[0]  # (T, H, W, 3) in [-1, 1]
 
     def _sample_mesh(self, n_samples: int, num_branches: int = 2):
-        """The JAX package's `_sample_mesh`: a dp-only mesh over the
-        mesh_devices ranks (built once), or None for the serial loop. Two
-        regimes (`generate_staged`): n_samples % dp == 0 shards whole
-        samples over dp; a single sample shards its K CFG guidance branches
-        over dp instead (the reference runs the branches one after the other
-        on one GPU, ddim.py:222-228)."""
+        """The JAX package's `_sample_mesh`: a dp x tp mesh over the
+        mesh_devices ranks (built once), dp = mesh_devices // mesh_tp, or
+        None for the serial loop. Two dp regimes (`generate_staged`):
+        n_samples % dp == 0 shards whole samples over dp; a single sample
+        shards its K CFG guidance branches over dp instead (the reference
+        runs the branches one after the other on one GPU,
+        ddim.py:222-228); with dp == 1 the ranks shard the UNet alone."""
         opts = self.opts
         if opts.mesh_devices <= 1:
             return None
-        dp = opts.mesh_devices
+        tp = max(1, opts.mesh_tp)
+        dp = opts.mesh_devices // tp
+        if dp * tp != opts.mesh_devices:
+            return None
         sample_dp = n_samples >= 2 and n_samples % dp == 0
         cfg_dp = (n_samples * num_branches) % dp == 0
-        if not (sample_dp or cfg_dp):
+        if not (sample_dp or cfg_dp or dp == 1):
             return None
         if self._mesh is None:
-            self._mesh = pm.make_mesh(dp, dp=dp, devices=[self.device] * self.world)
+            self._mesh = pm.make_mesh(opts.mesh_devices, dp=dp, tp=tp,
+                                      devices=[self.device] * self.world)
         return self._mesh
 
     def _diffuse_and_save(self, frames01: np.ndarray, name: str) -> np.ndarray:
