@@ -86,6 +86,38 @@ Phases, each printing JSON lines:
            steps) and one `engine.generate` of 2 DDIM steps with the main
            path's launches per UNet eval; file sizes, the seed / write / load
            seconds (`StageTimer`), peak memory
+  train_wiring
+           `TrainLoop` on the wiring config with both opt-in routes (every
+           kernel with a backward but `temporal_attention_fused`), 3 steps
+           on the card (bf16, float32 master weights) against the CPU in
+           float32, from the same weights, batches and draws: the losses,
+           gradient norms and the weights' change within twice the CPU bf16
+           run's distance plus floors; then under deterministic algorithms
+           the card's run once through and once saved after step 2,
+           restored in a new loop and run to the end: bit-identical
+  train    the full-width training path: `TrainLoop.run` on
+           `viewcrafter_25_512` (1.44 B UNet parameters, counted on the meta
+           device), seeded weights, B = 1 clip of 320x512x25, remat and EMA
+           on, 4 steps (warmup 1: step 1's lr is 0): s/step, the loss and
+           gradient norm per step, launches and backward passes per step,
+           whether the weights changed at step 2, peak memory, and step 4
+           under torch.profiler split on the device timeline into forward,
+           backward, optimizer and EMA (`phase_split`), with its kernel
+           categories
+  kernel_grads
+           every kernel with a backward (all but `fused_spatial_layer`)
+           under grad at every site the two phases above launched it with,
+           plus KERNEL_GRAD_EXTRA for the one they do not reach: the output
+           carries `KernelFunction`'s grad_fn, agrees with the twin's, and
+           every input's gradient is the twin's (the backward is the twin's
+           VJP: expected bit-equal, held to the kernel rule); the backward's
+           and the forward's ms; then `fused_spatial_layer` must raise under
+           grad
+  train_sharded_wiring
+           the wiring config's train step at dp 2 x sp 2 on 4 gloo ranks on
+           cuda:0 (2 clips, frames over sp), one step of a constant lr,
+           against the single-rank step on the card, at train_wiring's
+           tolerance; every rank launches every kernel and its backward
   sharded_cfg_dp
            multi-device sampling (`generate_staged(mesh=...)`, ranks started
            by `parallel.mesh.spawn`): `viewcrafter_25` at full width, B = 1,
@@ -140,10 +172,13 @@ Phases, each printing JSON lines:
            products as F.linear calls (cuBLAS), and for the temporal layer
            attn_library_ms, F.scaled_dot_product_attention over the frames of
            permuted (B, S, H, T, D) views: yardsticks for the layer's parts,
-           not library calls for the whole function (library_ms stays null)
+           not library calls for the whole function (library_ms stays null);
+           the training phases' sites are among them
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
-Then one {"kernels": [...]} line (the fullkv row also lists its DUSt3R sites
+Then one {"kernels": [...]} line (every row but the spatial layer's has
+"backward": the plain twin's VJP at its costliest training site with its ms,
+and the train phase's launches and backward passes per step; the fullkv row also lists its DUSt3R sites
 under "dust3r_sites", with the launches of each geometry pass that ran them;
 every row lists the sites `sharded_tp`'s ranks launched it at under
 "tp_sites", with both ranks' launches),
@@ -174,6 +209,15 @@ SHARDED_STEPS, SHARDED_SEED = 2, 5  # the sharded phases' DDIM steps and input s
 SPAWN_TIMEOUT = 600  # seconds for a sharded phase's ranks to finish
 EVAL_FRAMES = 6  # frames of the eval phase's clip (test/eval1 has 25)
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
+TRAIN_STEPS, PROFILED_STEP = 4, 4  # the full-width train phase's steps, and the one profiled
+TRAIN_WIRING_STEPS = 3
+TRAIN_SEED = 11
+# a kernel no training phase launches gets its backward checked here: the
+# long clip's temporal attention at B = 1 (the 512 model at 40 frames), and
+# at the wiring config's width
+# the train step's record_function ranges (training.py, train_loop.py)
+TRAIN_RANGES = ("train_step.forward", "train_step.optimizer", "train_loop.ema")
+KERNEL_GRAD_EXTRA = {"temporal_attention_fused": ((1, 40, 2560, 5, 64), (1, 40, 256, 1, 64))}
 # the near one-hot sites of the attention kernels (main-path ds2 sites, the
 # routes path's ds1 site)
 PEAKY_SITES = {"fullkv_attention": (50, 2304, 2304, 10, 64),
@@ -625,9 +669,49 @@ def profile_unet_eval(eng, frames, ids, uids, guidance, gen, what: str) -> dict:
             denoise(x_k, t_k)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, cats = {}, {}
+    return {"phase": "profile", "what": what, "wall_ms": wall_ms,
+            **device_breakdown(prof, wall_ms)}
+
+
+def is_annotation(evt) -> bool:
+    """A `record_function` range mirrored on the device timeline (it spans
+    kernels that are counted on their own)."""
+    return getattr(evt, "is_user_annotation", False) or evt.name.startswith(TRAIN_RANGES)
+
+
+def phase_split(prof) -> dict:
+    """The profiled train step's phases on the device timeline: forward,
+    optimizer and EMA from their `record_function` ranges, the backward
+    from the end of the forward to the start of the optimizer (autograd
+    launches it from its own thread, outside any range of the main one);
+    for each the span and the kernel time that starts inside it (ms)."""
+    import torch
+
+    spans, kernels = {}, []
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = evt.time_range
+        if evt.name in TRAIN_RANGES:
+            spans[evt.name] = (t.start, t.end)
+        elif not is_annotation(evt):
+            kernels.append((t.start, t.end - t.start))
+    fwd, opt = spans["train_step.forward"], spans["train_step.optimizer"]
+    phases = {"forward": fwd, "backward": (fwd[1], opt[0]), "optimizer": opt,
+              "ema": spans["train_loop.ema"]}
+    return {name: {"span_ms": (b - a) / 1e3,
+                   "kernel_ms": sum(d for start, d in kernels if a <= start < b) / 1e3}
+            for name, (a, b) in phases.items()}
+
+
+def device_breakdown(prof, wall_ms: float) -> dict:
+    """A torch.profiler run's device time: in all, its idle share of
+    `wall_ms`, by kernel category (PROFILE_CATEGORIES) and the top kernels."""
+    import torch
+
+    kernels, cats = {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or is_annotation(evt):
             continue
         ms = evt.device_time / 1e3
         name = evt.name
@@ -638,8 +722,7 @@ def profile_unet_eval(eng, frames, ids, uids, guidance, gen, what: str) -> dict:
         cats[cat] = cats.get(cat, 0.0) + ms
     device_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
-    return {"phase": "profile", "what": what, "wall_ms": wall_ms,
-            "device_ms": device_ms, "idle_share": max(0.0, 1 - device_ms / wall_ms),
+    return {"device_ms": device_ms, "idle_share": max(0.0, 1 - device_ms / wall_ms),
             "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
             "top": [[n[:100], v[0], v[1]] for n, v in top]}
 
@@ -1578,6 +1661,538 @@ def run_sharded_wiring(gen, phase: str = "sharded_wiring", cfg=None, world: int 
     return sites
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def train_batches(cfg, n: int, seed: int, device) -> list:
+    """`n` seeded training batches of one clip of `cfg`, made on `device`:
+    latents and guidance latents (1, T, h, w, 4), a context of the text
+    tokens and the resampler's image tokens, fs 10."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = cfg.diffusion.latent_size
+    ctx_len = cfg.clip_text.context_length + cfg.resampler.num_queries * (
+        cfg.resampler.video_length or 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    return [{"latents": randn(1, cfg.video_length, h, w, 4),
+             "cond_latents": randn(1, cfg.video_length, h, w, 4),
+             "context": randn(1, ctx_len, cfg.unet.context_dim),
+             "fs": torch.full((1,), 10.0, device=device)} for _ in range(n)]
+
+
+def wiring_loop(cfg, loop_cfg, device, dtype, weights, routes: bool, mesh=None):
+    """A TrainLoop of the wiring config on `device` in `dtype` (both opt-in
+    routes with `routes`) and its state from `weights`, its draws from a
+    CPU generator seeded with TRAIN_SEED: the same t and eps in every run."""
+    import torch
+
+    from viewcrafter_tpu_torch.train_loop import TrainLoop
+
+    loop = TrainLoop(cfg, loop_cfg, mesh=mesh, device=device, dtype=dtype,
+                     **route_kwargs(routes))
+    return loop, loop.init_state(torch.Generator().manual_seed(TRAIN_SEED), params=weights)
+
+
+def run_loop(loop, state, batches) -> dict:
+    """Run `loop` from `state` over `batches`; per step the loss, the
+    gradient norm and the seconds; the weights' change from the start (as
+    float32 on the CPU)."""
+    import torch
+
+    start = {k: v.detach().to("cpu", torch.float32, copy=True)
+             for k, v in state.train.params.items()}
+    steps = []
+
+    def on_step(step, loss, grad_norm):
+        steps.append((float(loss), float(grad_norm), time.perf_counter()))
+
+    t0 = time.perf_counter()
+    loop.run(batches, None, state=state, on_step=on_step)
+    if loop.device.type == "cuda":
+        torch.cuda.synchronize()
+    times = [t0] + [s[2] for s in steps]
+    return {"loss": [s[0] for s in steps], "grad_norm": [s[1] for s in steps],
+            "step_s": [b - a for a, b in zip(times, times[1:])],
+            "delta": {k: state.train.params[k].detach().float().cpu() - v
+                      for k, v in start.items()}}
+
+
+def compare_runs(got: dict, ref: dict, yard: tuple, lr: float) -> dict:
+    """A training run against the reference run: the losses and gradient
+    norms (relative error, the largest over the steps) and the weights'
+    change (in units of the learning rate: max and mean over every weight),
+    each held to twice the error of the yardstick pair of runs `yard` plus a
+    floor, as `run_wiring` holds a video (Adam turns a gradient near
+    rounding noise into a step of up to lr either way, so the mean is the
+    tight one)."""
+    import torch
+
+    def errs(a, b):
+        rel = lambda x, y: max(abs(p - q) / max(abs(q), 1e-12) for p, q in zip(x, y))  # noqa: E731
+        diff = torch.cat([(a["delta"][k] - b["delta"][k]).abs().flatten() for k in b["delta"]])
+        return {"loss": rel(a["loss"], b["loss"]), "grad_norm": rel(a["grad_norm"], b["grad_norm"]),
+                "delta_max": float(diff.max()) / lr, "delta_mean": float(diff.mean()) / lr}
+
+    err, y = errs(got, ref), errs(*yard)
+    floors = {"loss": 1e-2, "grad_norm": 1e-2, "delta_max": 0.1, "delta_mean": 1e-2}
+    tol = {k: 2 * y[k] + floors[k] for k in err}
+    return {"err": err, "yardstick": y, "tol": tol,
+            "ok": all(err[k] <= tol[k] for k in err)}
+
+
+def wiring_weights(cfg, seed: int) -> dict:
+    """Seeded float32 weights of the wiring config's UNet, on the CPU."""
+    import torch
+
+    from viewcrafter_tpu_torch.models.layers import init_random_
+    from viewcrafter_tpu_torch.models.unet3d import UNet3D
+
+    unet = UNet3D(cfg.unet, dtype=torch.float32)
+    init_random_(unet, torch.Generator().manual_seed(seed))
+    return {k: v.detach().clone() for k, v in unet.state_dict().items()}
+
+
+def run_train_wiring(steps: int = TRAIN_WIRING_STEPS, resume: bool = True) -> tuple:
+    """`TrainLoop` on the wiring config with both opt-in routes, so that every
+    gate takes its kernel: `steps` steps on the card (bf16 compute, float32
+    master weights) and on the CPU in float32 and in bf16 (the yardstick),
+    from the same weights, batches and draws; the losses, gradient norms and
+    weight changes held to `compare_runs`' tolerance, and every kernel of
+    the path launched and run backward. With `resume`: under
+    torch.use_deterministic_algorithms(True) the same run on the card once
+    through and once saved after step `steps - 1`, restored in a new loop
+    and run to the end: bit-identical, else the ops that have no
+    deterministic variant and the difference are printed and the phase
+    fails. Returns (result, launch sites)."""
+    import torch
+
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.train_loop import TrainLoopConfig
+
+    cfg = wiring_config(8)
+    loop_cfg = TrainLoopConfig(lr=1e-3, warmup_steps=1, decay_steps=10, max_steps=steps,
+                               log_every=0)
+    weights = wiring_weights(cfg, TRAIN_SEED)
+    batches = train_batches(cfg, steps, TRAIN_SEED, "cpu")
+    kernels.reset_launches()
+    runs = {}
+    for name, device, dtype in (("card", "cuda", torch.bfloat16), ("cpu_f32", "cpu", torch.float32),
+                                ("cpu_bf16", "cpu", torch.bfloat16)):
+        loop, state = wiring_loop(cfg, loop_cfg, device, dtype, weights, routes=True)
+        runs[name] = run_loop(loop, state, batches)
+        if name == "card":
+            counts, back = kernels.launch_counts(), kernels.backward_plain_counts()
+            sites = kernels.launch_sites()
+        del loop, state
+    cmp = compare_runs(runs["card"], runs["cpu_f32"], (runs["cpu_bf16"], runs["cpu_f32"]),
+                       loop_cfg.lr)
+    res = {"phase": "train_wiring", "steps": steps, "routes": True,
+           **{f"{k}_loss": runs[k]["loss"] for k in runs},
+           **{f"{k}_grad_norm": runs[k]["grad_norm"] for k in runs},
+           "card_step_s": runs["card"]["step_s"], **cmp,
+           "launches": counts, "backward_plain": back}
+    expect = set(MAIN_KERNELS) | {"group_norm_fused", "dual_cross_attention"}
+    missing = [k for k in expect if not (counts[k] and back[k])]
+    if resume:
+        res.update(deterministic_resume(cfg, loop_cfg, weights, batches))
+    emit(res)
+    if not cmp["ok"] or missing or (resume and not res["resume_bit_identical"]):
+        raise AssertionError(f"train_wiring: {cmp}, kernels without launches or backward "
+                             f"{missing}, resume {res.get('resume_bit_identical')}")
+    return res, sites
+
+
+def deterministic_resume(cfg, loop_cfg, weights, batches, device="cuda") -> dict:
+    """The card's run once through and once resumed from the checkpoint of
+    its last-but-one step, under deterministic algorithms: whether the
+    master weights, Adam's state and the EMA come out bit-identical, the
+    largest difference, and the ops that warned that they have no
+    deterministic variant. (cuBLAS asks for CUBLAS_WORKSPACE_CONFIG under
+    deterministic algorithms; it is set here when unset.)"""
+    import dataclasses
+    import tempfile
+    import warnings
+
+    import torch
+
+    steps = loop_cfg.max_steps
+    batches = batches[:steps - 1]  # the resumed loop starts a new epoch at the cut
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            finals = []
+            for name, cuts in (("once", (steps,)), ("resumed", (steps - 1, steps))):
+                lc = dataclasses.replace(loop_cfg, ckpt_dir=os.path.join(tmp, name))
+                for i, n in enumerate(cuts):
+                    loop, state = wiring_loop(cfg, dataclasses.replace(lc, max_steps=n), device,
+                                              torch.bfloat16, weights, routes=True)
+                    state = loop.run(batches, None, state=None if i else state)
+                finals.append(state)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    a, b = finals
+    pairs = [(a.train.params, b.train.params), (a.train.opt_state.mu, b.train.opt_state.mu),
+             (a.train.opt_state.nu, b.train.opt_state.nu), (a.ema.shadow, b.ema.shadow)]
+    diff = max(float((x[k] - y[k]).abs().max()) for x, y in pairs for k in x)
+    out["resume_bit_identical"] = all(torch.equal(x[k], y[k]) for x, y in pairs for k in x) and \
+        a.train.step == b.train.step == steps
+    out["resume_max_abs_diff"] = diff
+    out["nondeterministic_ops"] = sorted({str(w.message)[:200] for w in caught
+                                          if "deterministic" in str(w.message)})
+    return out
+
+
+def run_train(smi: str) -> tuple:
+    """The full-width training path: `TrainLoop.run` on `viewcrafter_25_512`
+    (the released 512 model at full width and depth, seeded weights) on the
+    card, remat on, EMA on, the TrainLoopConfig defaults but warmup_steps = 1
+    and max_steps = TRAIN_STEPS, B = 1 clip of 320x512x25 (latents 40x64x4
+    and 4 guidance channels), a context of 77 + 16*16 tokens, fs 10, batches
+    from a torch.Generator. Per step: seconds, the loss, the global gradient
+    norm, the kernels' launches and their backward passes; one step under
+    torch.profiler split into forward, backward, optimizer and EMA; the peak
+    memory; whether the weights changed at step 2 (step 1's lr is 0).
+    Returns (result, launch sites)."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from viewcrafter_tpu_torch.config import get_model_config
+    from viewcrafter_tpu_torch.models.unet3d import UNet3D
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.train_loop import TrainLoop, TrainLoopConfig
+
+    cfg = get_model_config("viewcrafter_25_512")
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in UNet3D(cfg.unet).parameters())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, TrainLoopConfig(warmup_steps=1, max_steps=TRAIN_STEPS))
+    state = loop.init_state(torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    batches = train_batches(cfg, TRAIN_STEPS, TRAIN_SEED, "cuda")
+    probe = [n for n, p in loop.model.named_parameters() if p.numel() > 1 << 20][:4]
+    records, snap, prof_box = [], {}, {}
+
+    def on_step(step, loss, grad_norm):
+        torch.cuda.synchronize()
+        records.append({"step": step, "t": time.perf_counter(), "loss": float(loss),
+                        "grad_norm": float(grad_norm), "launches": kernels.launch_counts(),
+                        "backward_plain": kernels.backward_plain_counts()})
+        if step in (1, 2):
+            snap[step] = {k: state.train.params[k].clone() for k in probe}
+        if step == PROFILED_STEP - 1:
+            prof_box["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof_box["prof"].__enter__()
+        elif step == PROFILED_STEP:
+            prof_box["prof"].__exit__(None, None, None)
+
+    kernels.reset_launches()
+    t_start = time.perf_counter()
+    loop.run(batches, None, state=state, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sites = kernels.launch_sites()
+    times = [t_start] + [r["t"] for r in records]
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    per_step = [{k: r["launches"][k] - (records[i - 1]["launches"][k] if i else 0)
+                 for k in MAIN_KERNELS} for i, r in enumerate(records)]
+    back = [{k: r["backward_plain"][k] - (records[i - 1]["backward_plain"][k] if i else 0)
+             for k in MAIN_KERNELS} for i, r in enumerate(records)]
+    prof = prof_box["prof"]
+    breakdown = device_breakdown(prof, step_s[PROFILED_STEP - 1] * 1e3)
+    split = phase_split(prof)
+    changed = any(not torch.equal(snap[1][k], snap[2][k]) for k in probe)
+    res = {"phase": "train", "model": cfg.name, "unet_params": n_params,
+           "batch": [1, cfg.video_length, cfg.height, cfg.width], "remat": loop.cfg.remat,
+           "ema": loop.cfg.use_ema, "steps": TRAIN_STEPS, "setup_s": setup_s,
+           "state_gib_before_step_1": state_gib, "step_s": step_s,
+           "s_per_step": statistics.median(step_s[1:]), "peak_mem_gib": peak,
+           "loss": [r["loss"] for r in records], "grad_norm": [r["grad_norm"] for r in records],
+           "lr": [float(loop.lr_fn(r["step"] - 1)) for r in records],
+           "params_changed_at_step_2": changed, "launches_per_step": per_step,
+           "backward_plain_per_step": back,
+           "profiled_step": PROFILED_STEP, "split": split, "profile": breakdown,
+           "nvidia_smi": smi,
+           "sites": {k: [[list(site), n] for site, n in v.items()] for k, v in sites.items() if v}}
+    emit(res)
+    del loop, state, batches, snap, prof_box, prof
+    torch.cuda.empty_cache()
+    bad = [k for k in MAIN_KERNELS
+           if not all(p[k] for p in per_step) or not all(b[k] for b in back)]
+    if (not all(math.isfinite(x) for x in res["loss"]) or not changed or bad
+            or any(k in sites and sites[k] for k in ("group_norm_fused", "dual_cross_attention"))):
+        raise AssertionError(f"train: losses {res['loss']}, weights changed at step 2 {changed}, "
+                             f"kernels without launches or backward in a step {bad}")
+    return res, sites
+
+
+def grad_inputs(name: str, site, randn) -> tuple:
+    """Random inputs of kernel `name` at `site` (a launch-sites key), the
+    differentiable ones first, and the wrapper's and twin's other arguments:
+    (tensors, kwargs)."""
+    import torch
+
+    f32 = torch.float32
+    if name == "fullkv_attention":
+        b, s, sk, h, d = site
+        return (randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)), {}
+    if name == "dual_cross_attention":
+        b, s, h, d, lt, li = site
+        return (randn(b, s, h, d), randn(b, lt, h, d), randn(b, lt, h, d), randn(b, li, h, d),
+                randn(b, li, h, d)), {}
+    if name == "temporal_attention_fused":
+        return tuple(randn(*site) for _ in range(3)), {}
+    if name == "temporal_conv3":
+        b, t, s, cin, cout = site
+        return (randn(b, t, s, cin), randn(cout, 3 * cin, scale=(3 * cin) ** -0.5),
+                randn(cout, scale=0.1)), {}
+    if name == "fused_ff_layer":
+        n, c, i, c_out = site
+        return (randn(n, c), 1 + randn(c, scale=0.1, dtype=f32), randn(c, scale=0.1, dtype=f32),
+                randn(2 * i, c, scale=c ** -0.5), randn(2 * i, scale=0.1),
+                randn(c_out, i, scale=i ** -0.5), randn(c_out, scale=0.1)), {}
+    if name == "fused_temporal_layer":
+        b, t, s, c, h, d = site
+        inner = h * d
+        return (randn(b, t, s, c), 1 + randn(c, scale=0.1, dtype=f32),
+                randn(c, scale=0.1, dtype=f32), randn(3 * inner, c, scale=c ** -0.5),
+                randn(c, inner, scale=inner ** -0.5), randn(c, scale=0.1)), \
+            {"heads": h, "dim_head": d}
+    if name == "group_norm_fused":
+        n, s, c, groups, itemsize, silu = site
+        dtype = torch.bfloat16 if itemsize == 2 else f32
+        return (randn(n, s, c, scale=1.5, dtype=dtype) + 0.3, 1 + randn(c, scale=0.1, dtype=f32),
+                randn(c, scale=0.1, dtype=f32)), \
+            {"num_groups": groups, "eps": 1e-5, "with_silu": bool(silu)}
+    raise KeyError(name)
+
+
+GRAD_KERNELS = ("temporal_conv3", "fused_ff_layer", "fullkv_attention", "fused_temporal_layer",
+                "group_norm_fused", "dual_cross_attention", "temporal_attention_fused")
+
+
+def grad_check(name: str, site, gen, peaks=None) -> dict:
+    """Kernel `name` under grad at `site`, through its wrapper: the output
+    must carry the Function's grad_fn, agree with the twin's output (the
+    kernel rule of `kernel_sites`), and give every input the twin's gradient
+    (expected bit-equal: the backward is the twin's VJP; held to the kernel
+    rule); the time of the Function's backward (the twin's recompute and
+    VJP) and of its forward."""
+    import torch
+
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.ops.kernels import _lib
+
+    mod = kernels.KERNEL_MODULES[name]
+    twin = getattr(mod, name + "_plain")
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    args, kw = grad_inputs(name, site, randn)
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    out = getattr(mod, name)(*leaves, **kw)
+    gout = randn(*out.shape, dtype=out.dtype)
+    before = mod.backward_plain
+    got = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+    ran = mod.backward_plain - before
+    ref_leaves = [a.detach().requires_grad_(True) for a in args]
+    ref_out = twin(*ref_leaves, **kw)
+    ref = torch.autograd.grad(ref_out, ref_leaves, gout)
+    worst, exact = {"max_abs_err": 0.0, "ok": True}, True
+    for g, r in zip(got, ref):
+        exact = exact and torch.equal(g, r)
+        err = (g.float() - r.float()).abs().max().item()
+        tol = 4 * 2.0 ** -8 * r.float().abs().max().item()
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["ok"] = worst["ok"] and err <= tol
+    fwd_err = (out.float() - ref_out.float()).abs().max().item()
+    fwd_tol = 4 * 2.0 ** -8 * ref_out.float().abs().max().item()
+    res = {"phase": "kernel_grad", "name": name, "site": list(site),
+           "grad_fn": type(out.grad_fn).__name__ if out.grad_fn is not None else None,
+           "backward_plain_calls": ran, "grads_bit_equal": exact,
+           "grad_max_abs_err": worst["max_abs_err"], "forward_max_abs_err": fwd_err,
+           "forward_tol": fwd_tol,
+           "backward_ms": time_ms(lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
+                                  reps=3, warmup=1),
+           "forward_ms": time_ms(lambda: getattr(mod, name)(*leaves, **kw), reps=3, warmup=1)}
+    del got, ref, ref_out, out, leaves, ref_leaves, args
+    torch.cuda.empty_cache()
+    if not (res["grad_fn"] == "KernelFunctionBackward" and ran == 1 and worst["ok"]
+            and fwd_err <= fwd_tol):
+        raise AssertionError(f"kernel_grads: {res}")
+    return res
+
+
+
+
+def backward_row(name: str, worst: dict, train_res: dict):
+    """The `{"kernels"}` row's backward entry: the plain twin's VJP (no
+    backward kernel) at the kernel's costliest training site, and the train
+    phase's launches and backward passes per step; None for the kernel
+    without a backward."""
+    if name not in worst:
+        return None
+    w = worst[name]
+    return {"route": "plain twin", "site": w["site"], "backward_ms": w["backward_ms"],
+            "forward_ms": w["forward_ms"], "grads_bit_equal": w["grads_bit_equal"],
+            "train_launches_per_step": [p.get(name, 0) for p in train_res["launches_per_step"]],
+            "train_backward_plain_per_step": [b.get(name, 0)
+                                              for b in train_res["backward_plain_per_step"]]}
+
+
+def spatial_layer_refuses_grad() -> str:
+    """`fused_spatial_layer` on a CUDA input that requires grad under grad
+    mode: it must raise. Returns the message."""
+    import torch
+
+    from viewcrafter_tpu_torch.ops.kernels import spatial_layer
+
+    c = 64
+    x = torch.zeros((1, 64, c), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    w = torch.zeros((3 * c, c), dtype=torch.bfloat16, device="cuda")
+    ones, zeros = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    try:
+        spatial_layer.fused_spatial_layer(x, ones, zeros, w, w[:c], zeros.bfloat16(),
+                                          heads=1, dim_head=64)
+    except RuntimeError as exc:
+        return str(exc)
+    raise AssertionError("fused_spatial_layer returned under grad on a CUDA input that "
+                         "requires grad")
+
+
+def run_kernel_grads(gen, site_maps) -> dict:
+    """Every kernel with a backward under grad at every site of `site_maps`
+    (the training phases' launches) and KERNEL_GRAD_EXTRA (a kernel no
+    training phase reaches): `grad_check` each; then `fused_spatial_layer`
+    must raise under grad. Returns, per kernel, the site whose backward
+    takes longest with its times."""
+    sites = merge_sites(*site_maps)
+    for name, extra in KERNEL_GRAD_EXTRA.items():
+        for site in extra:
+            sites.setdefault(name, {}).setdefault(site, 0)
+    worst = {}
+    for name in GRAD_KERNELS:
+        if not sites.get(name):
+            raise AssertionError(f"kernel_grads: no site of {name}")
+        for site in sites[name]:
+            res = grad_check(name, site, gen)
+            emit(res)
+            if name not in worst or res["backward_ms"] > worst[name]["backward_ms"]:
+                worst[name] = res
+    msg = spatial_layer_refuses_grad()
+    emit({"phase": "kernel_grads", "checks": sum(len(v) for k, v in sites.items()
+                                                 if k in GRAD_KERNELS),
+          "spatial_layer_under_grad": msg[:200],
+          "costliest_backward": {k: {key: v[key] for key in ("site", "backward_ms", "forward_ms",
+                                                             "grads_bit_equal")}
+                                 for k, v in worst.items()}})
+    return worst
+
+
+def train_sharded_rank(spec: dict) -> dict:
+    """Rank target of `train_sharded_wiring`: load the kernels the parent
+    built, one step of the wiring config's TrainLoop on the phase's mesh from
+    the given weights and draws; returns the loss, the gradient norm, the
+    kernels' launches and backward passes, and on rank 0 the weights'
+    change."""
+    import torch
+
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.ops.kernels import _lib
+    from viewcrafter_tpu_torch.parallel import mesh as pm
+
+    if not _lib.library_path().exists():
+        raise RuntimeError("the kernels are not built: the parent process builds them")
+    _lib.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pm.make_mesh(dp=2, devices=spec["devices"])
+    device = torch.device("cuda", torch.cuda.current_device())
+    weights = {k: torch.from_numpy(v) for k, v in spec["weights"].items()}
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in spec["batches"]]
+    loop, state = wiring_loop(spec["cfg"], spec["loop_cfg"], device, torch.bfloat16, weights,
+                              routes=True, mesh=mesh)
+    kernels.reset_launches()
+    run = run_loop(loop, state, batches)
+    torch.cuda.synchronize()
+    return {"rank": pm.rank(), "mesh": pm.mesh_shape(mesh), "loss": run["loss"],
+            "grad_norm": run["grad_norm"], "step_s": run["step_s"],
+            "launches": kernels.launch_counts(), "backward_plain": kernels.backward_plain_counts(),
+            "sites": kernels.launch_sites(),
+            "delta": {k: v.numpy() for k, v in run["delta"].items()} if pm.rank() == 0 else None}
+
+
+def run_train_sharded_wiring(world: int = 4) -> tuple:
+    """The wiring config's train step at dp 2 x sp 2 on `world` gloo ranks
+    sharing cuda:0 (batch 2: a clip a dp rank, its 8 frames over sp), both
+    routes on, one step of a constant lr (so that it moves the weights),
+    against the single-rank step on this card from the same weights,
+    batches and draws: the loss, gradient norm and weights' change held to
+    `compare_runs`' tolerance with the yardstick of the CPU's bf16 run
+    against its float32 run; every rank launches every kernel of the path
+    and runs its backward. Returns (result, the ranks' launch sites)."""
+    import torch
+
+    from viewcrafter_tpu_torch.parallel import mesh as pm
+    from viewcrafter_tpu_torch.train_loop import TrainLoopConfig
+
+    cfg = wiring_config(8)
+    loop_cfg = TrainLoopConfig(lr=1e-3, warmup_steps=0, schedule="constant", max_steps=1,
+                               log_every=0)
+    weights = wiring_weights(cfg, TRAIN_SEED + 1)
+    batch = train_batches(cfg, 2, TRAIN_SEED + 1, "cpu")
+    batch = [{k: torch.cat([b[k] for b in batch]) for k in batch[0]}]  # 2 clips
+    runs = {}
+    for name, device, dtype in (("card", "cuda", torch.bfloat16), ("cpu_f32", "cpu", torch.float32),
+                                ("cpu_bf16", "cpu", torch.bfloat16)):
+        loop, state = wiring_loop(cfg, loop_cfg, device, dtype, weights, routes=True)
+        runs[name] = run_loop(loop, state, batch)
+        del loop, state
+    torch.cuda.empty_cache()
+    devices = ["cuda:0"] * world
+    spec = {"cfg": cfg, "loop_cfg": loop_cfg, "devices": devices,
+            "weights": {k: v.numpy() for k, v in weights.items()},
+            "batches": [{k: v.numpy() for k, v in b.items()} for b in batch]}
+    t0 = time.perf_counter()
+    ranks = pm.spawn(train_sharded_rank, world, "gloo", devices=devices, args=(spec,),
+                     timeout=SPAWN_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    got = {"loss": ranks[0]["loss"], "grad_norm": ranks[0]["grad_norm"],
+           "delta": {k: torch.from_numpy(v) for k, v in ranks[0]["delta"].items()}}
+    cmp = compare_runs(got, runs["card"], (runs["cpu_bf16"], runs["cpu_f32"]), loop_cfg.lr)
+    expect = set(MAIN_KERNELS) | {"group_norm_fused", "dual_cross_attention"}
+    missing = {r["rank"]: [k for k in expect if not (r["launches"][k] and r["backward_plain"][k])]
+               for r in ranks}
+    res = {"phase": "train_sharded_wiring", "world": world, "backend": "gloo",
+           "mesh": ranks[0]["mesh"], "loss": [r["loss"] for r in ranks],
+           "single_rank_loss": runs["card"]["loss"],
+           "grad_norm": [r["grad_norm"] for r in ranks],
+           "single_rank_grad_norm": runs["card"]["grad_norm"],
+           "step_s": [r["step_s"] for r in ranks], **cmp,
+           "launches": [{k: r["launches"][k] for k in expect} for r in ranks],
+           "backward_plain": [{k: r["backward_plain"][k] for k in expect} for r in ranks],
+           "spawn_wall_s": wall_s}
+    emit(res)
+    if (not cmp["ok"] or any(missing.values())
+            or len({(tuple(r["loss"]), tuple(r["grad_norm"])) for r in ranks}) != 1):
+        raise AssertionError(f"train_sharded_wiring: {res}")
+    return res, [r["sites"] for r in ranks]
+
+
 def wgmma_kernel_resources(log: str) -> list:
     """ptxas's registers and spill bytes for each instance of the kernels in
     WGMMA_FUNCTIONS, read from the `-Xptxas -v` build log."""
@@ -1758,6 +2373,15 @@ def main() -> int:
 
     _, checkpoint_sites = run_checkpoint(gen, smi)
 
+    # training: the small all-kernel config card against CPU (and its
+    # deterministic resume), the full-width train phase, every kernel's
+    # backward at the sites those launched, then dp x sp on 4 ranks
+    torch.cuda.empty_cache()
+    _, train_wiring_sites = run_train_wiring()
+    train_res, train_sites = run_train(smi)
+    grad_worst = run_kernel_grads(gen, [train_sites, train_wiring_sites])
+    _, train_sharded_sites = run_train_sharded_wiring()
+
     # multi-device sampling: ranks spawned from here, each phase after the
     # models before it are freed
     torch.cuda.empty_cache()
@@ -1780,6 +2404,7 @@ def main() -> int:
     # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
     # path's launch count a kernel's row reports.
     sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites,
+                        train_wiring_sites, train_sites, *train_sharded_sites,
                         *sharded_sites, *(s["all"] for s in (main_sites, routes_sites, *pab_sites,
                                                              long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 32, 4, 1)] = 0
@@ -1814,6 +2439,7 @@ def main() -> int:
             "library_ms": top["library_ms"],
             **{key: top[key] for key in ("gemm_library_ms", "attn_library_ms") if key in top},
             "ms_per_unet_eval": per_eval["kernel_ms"], "bound_ms_per_unet_eval": per_eval["bound_ms"],
+            "backward": backward_row(kname, grad_worst, train_res),
         })
         if rows[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was never launched on the {path} path")

@@ -246,6 +246,48 @@ def test_wrappers_refuse_float32_on_the_card(gen):
                                      torch.zeros(64, device="cuda"))
 
 
+# a small site of each kernel with a backward (chip_smoke.grad_inputs keys)
+GRAD_SITES = {
+    "temporal_conv3": (1, 5, 24, 64, 64),
+    "fused_ff_layer": (200, 64, 256, 64),
+    "fullkv_attention": (2, 256, 200, 2, 64),
+    "fused_temporal_layer": (2, 8, 40, 64, 1, 64),
+    "group_norm_fused": (2, 100, 64, 32, 2, 1),
+    "dual_cross_attention": (1, 200, 2, 64, 77, 16),
+    "temporal_attention_fused": (1, 40, 24, 2, 64),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAD_SITES))
+def test_kernel_gradients_are_the_twins(gen, name):
+    """Each wrapper under grad on CUDA inputs that require grad: the output
+    carries `KernelFunction`'s grad_fn and every input's gradient is the
+    twin's (chip_smoke.py's kernel_grads phase, which raises otherwise)."""
+    from chip_smoke import grad_check
+
+    res = grad_check(name, GRAD_SITES[name], gen)
+    assert res["grad_fn"] == "KernelFunctionBackward" and res["backward_plain_calls"] == 1
+
+
+def test_spatial_layer_raises_under_grad(gen):
+    """`fused_spatial_layer` has no backward: a CUDA input that requires
+    grad under grad mode raises."""
+    from chip_smoke import spatial_layer_refuses_grad
+
+    assert "requires grad" in spatial_layer_refuses_grad()
+
+
+def test_train_wiring_steps_match_cpu(gen):
+    """Two `TrainLoop` steps of the small all-kernel config on the card
+    (bf16, float32 master weights) against the CPU's float32 run, within
+    twice the CPU bf16 run's distance plus the floors (chip_smoke.py's
+    train_wiring phase without its resume check)."""
+    from chip_smoke import run_train_wiring
+
+    res, _ = run_train_wiring(steps=2, resume=False)
+    assert res["ok"]
+
+
 def test_generate_wiring_matches_cpu(gen):
     """`generate` on a small config whose every gate takes the kernels,
     card against CPU (the same check as chip_smoke.py's wiring phase)."""

@@ -28,7 +28,10 @@ import viewcrafter_tpu_torch.ops.rope2d
 import viewcrafter_tpu_torch.parallel
 import viewcrafter_tpu_torch.parallel.mesh
 import viewcrafter_tpu_torch.pipeline
+import viewcrafter_tpu_torch.train_loop
+import viewcrafter_tpu_torch.training
 import viewcrafter_tpu_torch.utils.checkpoint
+import viewcrafter_tpu_torch.utils.ema
 import viewcrafter_tpu_torch.utils.io
 import viewcrafter_tpu_torch.utils.metrics
 import viewcrafter_tpu_torch.utils.profiling

@@ -28,11 +28,21 @@ unsharded product; and in float32 this model's own rounding, amplified by
 CFG over the steps, moves the video by about 3e-5 against a float64 run
 (the inputs of run 2; tests/test_torch_tp.py holds it above ATOL). So run 4
 builds its engines in float64 (the norms and softmax still compute in
-float32 inside), where tp lands well within ATOL of the single-device run. The JAX dry run's training step waits
-for its slice of the port (ROADMAP.md).
+float32 inside), where tp lands well within ATOL of the single-device run.
+
+Then the collectives' backward on every rank (`check_collective_grads`) and
+the JAX dry run's training step (`train_dryrun`): one dp x sp step of
+`training.make_train_step` (`make_mesh(N)`: batch dp, frames over sp, at
+least two frames a rank) on `viewcrafter_tiny` in float32 with seeded
+weights, remat on (the training loop's default: the recompute gathers the
+frames again and the gathers' backward is a reduce-scatter), held on every
+rank against the single-device step in the same process: the loss and every
+updated parameter within ATOL (the step's gradients are a sum over the ranks
+in another order than the single device's, which float32 carries far below
+ATOL).
 
 `generate_on_mesh` and `diffuse_on_mesh` are also the rank targets of
-tests/test_torch_parallel.py.
+tests/test_torch_parallel.py, `train_on_mesh` of tests/test_torch_training.py.
 """
 
 from __future__ import annotations
@@ -200,11 +210,101 @@ def inference_dryrun(n: int, timeout: float = 600.0) -> dict:
     return errs
 
 
+def train_batch(cfg: ModelConfig, b: int, t: int, seed: int = SEED) -> dict:
+    """A seeded numpy training batch of `b` clips of `t` frames."""
+    h, w = cfg.diffusion.latent_size
+    ctx_len = cfg.clip_text.context_length + cfg.resampler.num_queries * (
+        cfg.resampler.video_length or 1)
+    rng = np.random.default_rng(seed)
+    return {"latents": rng.standard_normal((b, t, h, w, 4), np.float32),
+            "cond_latents": rng.standard_normal((b, t, h, w, 4), np.float32),
+            "context": rng.standard_normal((b, ctx_len, cfg.unet.context_dim), np.float32),
+            "fs": np.full((b,), 10.0, np.float32)}
+
+
+def train_step_once(cfg: ModelConfig, batch: dict, mesh=None) -> tuple:
+    """One `make_train_step` step of a float32 UNet of `cfg` (remat on)
+    with seeded weights and draws, on the CPU: (loss, grad norm, updated
+    master weights as numpy)."""
+    from viewcrafter_tpu_torch.models.unet3d import UNet3D
+    from viewcrafter_tpu_torch.ops.schedule import DiffusionSchedule
+    from viewcrafter_tpu_torch.train_loop import TrainLoopConfig, make_optimizer
+    from viewcrafter_tpu_torch.training import create_train_state, make_train_step
+
+    model = UNet3D(cfg.unet, dtype=torch.float32, remat=True)
+    tx = make_optimizer(TrainLoopConfig(lr=1e-4, warmup_steps=0, schedule="constant"))
+    state = create_train_state(model, cfg, torch.Generator().manual_seed(0), tx)
+    step = make_train_step(model, DiffusionSchedule.create(timesteps=cfg.diffusion.timesteps),
+                           tx, mesh=mesh)
+    _, loss, norm = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                         torch.Generator().manual_seed(SEED))
+    return float(loss), float(norm), {k: v.numpy() for k, v in state.params.items()}
+
+
+def train_dryrun(mesh) -> dict:
+    """One sharded training step on `viewcrafter_tiny` over `mesh` (a
+    ("dp", "sp", "tp") mesh with tp = 1): batch dp, frames a multiple of sp
+    with two or more a rank. Raises unless the loss is finite and the loss
+    and the updated weights are within ATOL of the single-device step (made
+    in this process); returns the loss and both errors."""
+    shape = pm.mesh_shape(mesh)
+    dp, sp = shape["dp"], shape["sp"]
+    cfg = get_model_config("viewcrafter_tiny")
+    t = -(-max(cfg.video_length, 2 * sp) // sp) * sp
+    batch = train_batch(cfg, dp, t)
+    loss, norm, params = train_step_once(cfg, batch, mesh)
+    ref_loss, ref_norm, ref = train_step_once(cfg, batch)
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite training loss {loss}")
+    err = max(float(np.abs(params[k] - ref[k]).max()) for k in ref)
+    if not (abs(loss - ref_loss) <= ATOL and err <= ATOL):
+        raise AssertionError(f"sharded train step diverges from single-device: loss {loss} "
+                             f"against {ref_loss}, weights max abs error {err} > {ATOL}")
+    return {"loss": loss, "loss_err": abs(loss - ref_loss), "weights_err": err}
+
+
+def check_collective_grads() -> None:
+    """The backward of the two collectives, on every rank of the default
+    group: rank r's loss sum(w_r * all_gather(x_r)) gives x_r the gradient
+    sum_q w_q at r's block (a reduce-scatter), and sum(w_r *
+    all_reduce_sum(x_r)) gives it sum_q w_q; raises otherwise."""
+    import torch.distributed as dist
+
+    world, r = pm.world_size(), pm.rank()
+    weights = [torch.arange(4 * world * 3, dtype=torch.float32).view(-1, 3) * (q + 1)
+               for q in range(world)]
+    total = sum(weights)
+    x = torch.full((4, 3), float(r), requires_grad=True)
+    (weights[r] * pm.all_gather(x, dist.group.WORLD, 0)).sum().backward()
+    if not torch.equal(x.grad, total[4 * r:4 * (r + 1)]):
+        raise AssertionError(f"rank {r}: all_gather's backward {x.grad} is not the reduce-scatter")
+    y = torch.full((4 * world, 3), float(r), requires_grad=True)
+    (weights[r] * pm.all_reduce_sum(y, dist.group.WORLD)).sum().backward()
+    if not torch.equal(y.grad, total):
+        raise AssertionError(f"rank {r}: all_reduce_sum's backward is not the sum")
+
+
+def train_on_mesh(mesh_kw: dict) -> dict:
+    """Rank target: `check_collective_grads`, then `train_dryrun` on
+    make_mesh(**mesh_kw) over CPU ranks, with batch-invariant kernels.
+    Returns its result and the mesh shape."""
+    batch_invariant_cpu()
+    torch.set_num_threads(THREADS)
+    check_collective_grads()
+    mesh = pm.make_mesh(devices=["cpu"] * pm.world_size(), **mesh_kw)
+    return {**train_dryrun(mesh), "mesh": pm.mesh_shape(mesh)}
+
+
 def main(n: int) -> None:
     errs = inference_dryrun(n)
     print(f"sharded inference ok on {n} gloo CPU ranks (sample dp, CFG-branch dp, frame "
           f"sp{' and dp x sp x tp' if n % 4 == 0 else ''} against single-device, atol {ATOL}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+    ranks = pm.spawn(train_on_mesh, n, "gloo", devices=["cpu"] * n, args=({},), timeout=600)
+    res = ranks[0]
+    print(f"sharded train step ok on {n} gloo CPU ranks (mesh {res['mesh']}, loss "
+          f"{res['loss']:.6g}; against single-device, atol {ATOL}: loss {res['loss_err']:.3g}, "
+          f"weights {res['weights_err']:.3g})", flush=True)
 
 
 if __name__ == "__main__":

@@ -49,6 +49,14 @@ kernels on its slice and ends its row-parallel product with one all-reduce
 stores, is the whole, replicated output. Under "sp" the tp modules run
 inside the gathered clip. Unsharded, `tp` is NO_AXIS and the sums are the
 identity.
+
+Gradient checkpointing (`remat=True`, the JAX package's per-block `nn.remat`
+and the reference's per-block checkpointing): every `SpatialTransformer`,
+`TemporalTransformer` and `ResBlock` runs under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`, which keeps its
+inputs and recomputes its inside in the backward; the kernels it launches
+are launched again there. As in the JAX package it is off when an attention
+cache is read or collected, and the CFG shared-prefix dedup is off under it.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from viewcrafter_tpu_torch.config import UNetConfig
 from viewcrafter_tpu_torch.models.layers import (
@@ -490,14 +499,16 @@ class UNet3D(nn.Module):
     (B, T, H, W, out_channels) in float32.
 
     cross_attn_impl, gn_fused: the two opt-in kernel routes (module
-    docstring); the defaults are the JAX package's."""
+    docstring); the defaults are the JAX package's. remat: per-block
+    gradient checkpointing (module docstring), off by default as in the JAX
+    package."""
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.bfloat16,
-                 cross_attn_impl: str = "xla", gn_fused: bool = False):
+                 cross_attn_impl: str = "xla", gn_fused: bool = False, remat: bool = False):
         super().__init__()
         if cross_attn_impl not in ("xla", "auto"):
             raise ValueError(f"unknown cross_attn_impl {cross_attn_impl!r}")
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         mc = cfg.model_channels
         ted = mc * 4
         nhc = cfg.num_head_channels
@@ -575,7 +586,7 @@ class UNet3D(nn.Module):
         `context` differs per branch). The context-free prefix of the net,
         up to the first cross-attention, then runs once at batch B/K and is
         replicated there: the same output for less work. Off whenever a
-        cache is read or collected, as in the JAX package.
+        cache is read or collected, and under remat, as in the JAX package.
 
         frames: the "sp" axis when x holds this rank's block of the clip's
         frames (module docstring); `context` then still covers the whole
@@ -614,10 +625,19 @@ class UNet3D(nn.Module):
 
         h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dtype)
 
+        # gradient checkpointing: only the cache-free call is wrapped (so the
+        # dedup below is off under it and every block sees tile_k = 1)
+        use_remat = self.remat and cache is _NO_CACHE
+
+        def call(mod, *args, **kw):
+            if use_remat:
+                return checkpoint(mod, *args, use_reentrant=False, **kw)
+            return mod(*args, **kw)
+
         # CFG-prefix dedup: run the context-independent prefix once for the K
         # identical guidance branches, replicate at the first cross-attention
         k_sh = shared_prefix
-        if k_sh > 1 and (b % k_sh or cache is not _NO_CACHE):
+        if k_sh > 1 and (b % k_sh or cache is not _NO_CACHE or use_remat):
             k_sh = 1
         state = {"b": b // k_sh, "tiled": k_sh == 1}
         if k_sh > 1:
@@ -627,11 +647,11 @@ class UNet3D(nn.Module):
             return emb if state["tiled"] else emb[: state["b"] * t]
 
         def run_res(name, h):
-            return getattr(self, name)(h, cur_emb(), state["b"], frames)
+            return call(getattr(self, name), h, cur_emb(), state["b"], frames)
 
         def run_spatial(name, h):
             tk = 1 if state["tiled"] else k_sh
-            out = getattr(self, name)(h, ctx, cache=cache, site=name, tile_k=tk)
+            out = call(getattr(self, name), h, ctx, cache=cache, site=name, tile_k=tk)
             if tk > 1:
                 state["b"], state["tiled"] = b, True
             return out
@@ -639,8 +659,8 @@ class UNet3D(nn.Module):
         def run_temporal(name, h):
             bt, sh, sw, c = h.shape
             hv = h.reshape(state["b"], t, sh, sw, c)
-            return getattr(self, name)(hv, cache=cache, site=name,
-                                       frames=frames).reshape(bt, sh, sw, c)
+            return call(getattr(self, name), hv, cache=cache, site=name,
+                        frames=frames).reshape(bt, sh, sw, c)
 
         def pop_skip(h):
             skip = hs.pop()

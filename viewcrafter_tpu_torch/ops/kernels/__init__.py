@@ -33,10 +33,18 @@ def reset_launches() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
         mod.sites = {}
+        if hasattr(mod, "backward_plain"):
+            mod.backward_plain = 0
 
 
 def launch_counts() -> dict:
     return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def backward_plain_counts() -> dict:
+    """Per kernel with a backward, its backward passes since the last reset."""
+    return {name: mod.backward_plain for name, mod in KERNEL_MODULES.items()
+            if hasattr(mod, "backward_plain")}
 
 
 def launch_sites() -> dict:

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (`viewcrafter_tpu_torch/csrc`).
+"""Build and load the hand-written CUDA kernels (`viewcrafter_tpu_torch/csrc`),
+and give them a backward.
 
 Each `.cu` source is compiled by its own `nvcc` process, all started together,
 for `sm_90a`; the objects are linked into one shared library with a plain C
@@ -6,6 +7,17 @@ interface, loaded with ctypes. The library's name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the cached build. The build directory (`_build/` beside this package's
 sources) is git-ignored; nothing is built when a module is imported.
+
+Gradients (`KernelFunction`, `launch`): the JAX package's kernels have no
+VJP and none is written for the card either. A wrapper called under grad
+mode with an input that requires grad goes through `KernelFunction`: its
+forward launches the kernel as the wrapper does, saves the inputs, and its
+backward recomputes the kernel's plain twin on them under `enable_grad` and
+returns the twin's VJP for every input that needs one (weights and biases
+included), one batch chunk at a time where the twin chunks its logits. Each
+backward adds one to the kernel module's `backward_plain`. A launch that
+bypasses the Function with such an input raises (`require`), so no kernel
+drops the graph silently.
 """
 
 from __future__ import annotations
@@ -17,6 +29,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from types import ModuleType
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -141,7 +155,14 @@ def stream_ptr() -> int:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
-    """The checks every wrapper makes before it hands a pointer to a kernel."""
+    """The checks every wrapper makes before it hands a pointer to a kernel.
+    An input that requires grad under grad mode raises: the launch would
+    return an output without a graph (a wrapper with a backward launches
+    through `KernelFunction`, whose forward runs without grad mode)."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{name} requires grad under grad mode, and this launch has no "
+                           "backward (a wrapper with one launches through KernelFunction): "
+                           "run it under torch.no_grad()")
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
     if t.dtype != dtype:
@@ -152,3 +173,73 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# --------------------------------------------------------------------------
+# the backward: the plain twin's VJP
+# --------------------------------------------------------------------------
+
+
+class KernelSpec(NamedTuple):
+    """One kernel call as `KernelFunction` sees it: `run` launches the
+    kernel, `twin` is its plain torch version (both take the call's tensors
+    positionally, with its other arguments bound), `module` the kernel's
+    module (its `backward_plain` counts the backward passes), `chunk` the
+    rows of dim 0 the twin's VJP takes at a time (None: all at once; every
+    input then shares that batch dim)."""
+
+    run: Callable
+    twin: Callable
+    module: ModuleType
+    chunk: Optional[int] = None
+
+
+class KernelFunction(torch.autograd.Function):
+    """Forward: the kernel. Backward: the twin's VJP at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, spec: KernelSpec, *inputs):
+        ctx.spec = spec
+        ctx.save_for_backward(*inputs)
+        return spec.run(*inputs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        spec = ctx.spec
+        spec.module.backward_plain += 1
+        return (None, *twin_vjp(spec, ctx.saved_tensors, ctx.needs_input_grad[1:], grad))
+
+
+def twin_vjp(spec: KernelSpec, inputs, needs, grad) -> list:
+    """The gradients of spec.twin(*inputs) against `grad` for each input
+    whose `needs` is set (None for the others), computed chunk by chunk
+    along dim 0 when `spec.chunk` is set, so that one chunk's graph lives at
+    a time."""
+    n = inputs[0].shape[0]
+    step = spec.chunk or n
+    wanted = [i for i, need in enumerate(needs) if need]
+    parts = {i: [] for i in wanted}
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        with torch.enable_grad():
+            xs = [t if spec.chunk is None else t[lo:hi] for t in inputs]
+            xs = [t.detach().requires_grad_(need) for t, need in zip(xs, needs)]
+            out = spec.twin(*xs)
+            got = torch.autograd.grad(out, [xs[i] for i in wanted],
+                                      grad if spec.chunk is None else grad[lo:hi],
+                                      allow_unused=True)
+        for i, g in zip(wanted, got):
+            parts[i].append(torch.zeros_like(xs[i]) if g is None else g)
+    grads = [None] * len(inputs)
+    for i in wanted:
+        grads[i] = parts[i][0] if len(parts[i]) == 1 else torch.cat(parts[i])
+    return grads
+
+
+def launch(spec: KernelSpec, *inputs: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel of `spec` on `inputs`: through `KernelFunction`
+    under grad mode when an input requires grad, else directly."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return KernelFunction.apply(spec, *inputs)
+    return spec.run(*inputs)

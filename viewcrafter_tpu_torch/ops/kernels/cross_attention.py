@@ -31,12 +31,15 @@ operations, barely.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (B, Sq, H, D, Lt, Li) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 PLAIN_LOGIT_BYTES = 1 << 31  # the plain twin's f32 logits per batch chunk
 BLOCK_Q = 128  # query rows per tile of the kernel
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
@@ -48,8 +51,7 @@ def dual_cross_attention_plain(q, k_text, v_text, k_img, v_img):
     logits of one chunk stay under PLAIN_LOGIT_BYTES."""
     b, s, h, d = q.shape
     dt = q.dtype
-    lkv = k_text.shape[1] + k_img.shape[1]
-    chunk = max(1, PLAIN_LOGIT_BYTES // (h * s * lkv * 4))
+    chunk = plain_chunk(q.shape, k_text.shape[1] + k_img.shape[1])
     outs = []
     for i in range(0, b, chunk):
         sl = slice(i, i + chunk)
@@ -65,6 +67,12 @@ def dual_cross_attention_plain(q, k_text, v_text, k_img, v_img):
     return torch.cat(outs, dim=0)
 
 
+def plain_chunk(q_shape, lkv: int) -> int:
+    """Batch rows per chunk of the plain twin (and of its VJP)."""
+    _, s, h, _ = q_shape
+    return max(1, PLAIN_LOGIT_BYTES // (h * s * lkv * 4))
+
+
 def _smem_bytes(lt: int, li: int, d: int) -> int:
     lp = -(-(lt + li) // 16) * 16
     return (BLOCK_Q + 2 * lp) * (d + 8) * 2
@@ -74,10 +82,17 @@ def dual_cross_attention(q, k_text, v_text, k_img, v_img) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v_text: (B, Lt, H, D); k/v_img: (B, Li, H, D).
     Returns attention(q, text) + attention(q, img), each with its own
     softmax, as (B, Sq, H, D). A CPU tensor takes the plain twin; a CUDA
-    tensor launches the kernel or raises."""
-    global launches
+    tensor launches the kernel or raises. Under grad the backward is the
+    twin's VJP, one batch chunk of the twin at a time."""
     if not q.is_cuda:
         return dual_cross_attention_plain(q, k_text, v_text, k_img, v_img)
+    spec = _lib.KernelSpec(_launch, dual_cross_attention_plain, sys.modules[__name__],
+                           plain_chunk(q.shape, k_text.shape[1] + k_img.shape[1]))
+    return _lib.launch(spec, q, k_text, v_text, k_img, v_img)
+
+
+def _launch(q, k_text, v_text, k_img, v_img):
+    global launches
     b, s, h, d = q.shape
     lt, li = k_text.shape[1], k_img.shape[1]
     bf = torch.bfloat16

@@ -31,12 +31,16 @@ output (0.44 ms): about 1.4 ms for this design.
 
 from __future__ import annotations
 
+import sys
+from functools import partial
+
 import torch
 
 from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernels
 sites: dict = {}  # (N, C, I, C_out) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 
 
 def _layer_norm(x, w, b, eps):
@@ -64,10 +68,17 @@ def fused_ff_layer(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
     """x: (..., C). ln_w, ln_b: (C,) f32. w1: (2I, C), b1: (2I,);
     w2: (C_out, I), b2: (C_out,). Returns LayerNorm -> GEGLU -> out
     projection, shaped (..., C_out), without the residual. A CPU tensor
-    takes the plain twin; a CUDA tensor launches the kernels or raises."""
-    global launches
+    takes the plain twin; a CUDA tensor launches the kernels or raises.
+    Under grad the backward is the twin's VJP for x and every weight."""
     if not x.is_cuda:
         return fused_ff_layer_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    spec = _lib.KernelSpec(partial(_launch, eps=eps), partial(fused_ff_layer_plain, eps=eps),
+                           sys.modules[__name__])
+    return _lib.launch(spec, x, ln_w, ln_b, w1, b1, w2, b2)
+
+
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    global launches
     c = x.shape[-1]
     inner, c_out = w2.shape[1], w2.shape[0]
     n = x.numel() // c

@@ -30,6 +30,7 @@ and reads K/V once per query tile.
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 
@@ -37,6 +38,7 @@ from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (B, Sq, Sk, H, D) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 PLAIN_LOGIT_BYTES = 1 << 31  # the plain twin's f32 logits per batch chunk
 
 
@@ -52,7 +54,7 @@ def fullkv_attention_plain(q, k, v, q_scale=None):
     b, s, h, d = q.shape
     sk = k.shape[1]
     qs = (q.float() * (_q_scale(d) if q_scale is None else q_scale)).to(q.dtype)
-    chunk = max(1, PLAIN_LOGIT_BYTES // (h * s * sk * 4))
+    chunk = plain_chunk(q.shape, sk)
     outs = []
     for i in range(0, b, chunk):
         logits = torch.einsum("bqhd,bkhd->bhqk", qs[i:i + chunk].float(), k[i:i + chunk].float())
@@ -63,13 +65,27 @@ def fullkv_attention_plain(q, k, v, q_scale=None):
     return torch.cat(outs, dim=0)
 
 
+def plain_chunk(q_shape, sk: int) -> int:
+    """Batch rows per chunk of the plain twin (and of its VJP)."""
+    _, s, h, _ = q_shape
+    return max(1, PLAIN_LOGIT_BYTES // (h * s * sk * 4))
+
+
 def fullkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, H, D), D in {64, 128}. Returns
     softmax(q k^T / sqrt(D)) v as (B, Sq, H, D). A CPU tensor takes the plain
-    twin; a CUDA tensor launches the kernel or raises."""
-    global launches
+    twin; a CUDA tensor launches the kernel or raises. Under grad the
+    backward is the twin's VJP, one batch chunk of the twin at a time
+    (`_lib.KernelFunction`)."""
     if not q.is_cuda:
         return fullkv_attention_plain(q, k, v)
+    spec = _lib.KernelSpec(_launch, fullkv_attention_plain, sys.modules[__name__],
+                           plain_chunk(q.shape, k.shape[1]))
+    return _lib.launch(spec, q, k, v)
+
+
+def _launch(q, k, v):
+    global launches
     b, s, h, d = q.shape
     sk = k.shape[1]
     _lib.require(q, "q", torch.bfloat16)

@@ -49,12 +49,16 @@ top site roughly 0.25 of the 0.30 GB of x (an estimate: ~0.84 GB in all,
 
 from __future__ import annotations
 
+import sys
+from functools import partial
+
 import torch
 
 from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (N, S, C, groups, itemsize, with_silu) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 MIN_CHUNK_ROWS = 8
 MAX_CHANNELS = 3840
 
@@ -104,10 +108,18 @@ def group_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """x: (N, S, C) bf16 or f32, channels last; scale, bias: (C,). Returns
     GroupNorm(num_groups) with the affine and the optional SiLU, in x's type.
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
-    raises."""
-    global launches
+    raises. Under grad the backward is the twin's VJP for x, scale and
+    bias."""
     if not x.is_cuda:
         return group_norm_fused_plain(x, scale, bias, num_groups, eps, with_silu)
+    kw = dict(num_groups=num_groups, eps=eps, with_silu=with_silu)
+    spec = _lib.KernelSpec(partial(_launch, **kw), partial(group_norm_fused_plain, **kw),
+                           sys.modules[__name__])
+    return _lib.launch(spec, x, scale, bias)
+
+
+def _launch(x, scale, bias, num_groups: int, eps: float, with_silu: bool):
+    global launches
     if x.ndim != 3:
         raise ValueError(f"group_norm_fused takes (N, S, C), got {tuple(x.shape)}")
     n, s, c = x.shape

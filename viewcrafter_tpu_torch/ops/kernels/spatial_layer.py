@@ -69,7 +69,8 @@ def fused_spatial_layer(x, ln_w, ln_b, wqkv, wo, bo, *, heads: int, dim_head: in
     self-attention over S per batch row -> out projection, shaped like x (the
     caller adds the residual). Weights in nn.Linear layout: wqkv (3C, C),
     wo (C, C), bo (C,). A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernels or raises."""
+    launches the kernels or raises. It has no backward (no model calls it):
+    on a CUDA input that requires grad under grad mode it raises."""
     global launches
     if not x.is_cuda:
         return fused_spatial_layer_plain(x, ln_w, ln_b, wqkv, wo, bo, heads=heads,

@@ -28,12 +28,15 @@ bytes.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (B, T, S, H, D) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 MAX_T = 64
 
 
@@ -48,10 +51,16 @@ def temporal_attention_fused_plain(q, k, v):
 def temporal_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q, k, v: (B, T, S, H, D), T <= 64, D in {64, 128}; attention over T for
     each (b, s, h). Returns (B, T, S, H, D) in q's type. A CPU tensor takes
-    the plain twin; a CUDA tensor launches the kernel or raises."""
-    global launches
+    the plain twin; a CUDA tensor launches the kernel or raises. Under grad
+    the backward is the twin's VJP."""
     if not q.is_cuda:
         return temporal_attention_fused_plain(q, k, v)
+    spec = _lib.KernelSpec(_launch, temporal_attention_fused_plain, sys.modules[__name__])
+    return _lib.launch(spec, q, k, v)
+
+
+def _launch(q, k, v):
+    global launches
     if q.ndim != 5:
         raise ValueError(f"temporal_attention_fused takes (B, T, S, H, D), got {tuple(q.shape)}")
     b, t, s, h, d = q.shape

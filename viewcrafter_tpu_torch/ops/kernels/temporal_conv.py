@@ -26,12 +26,15 @@ weight transposed once to (Cout, 3, Cin) (`rows_from_conv3d`).
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from viewcrafter_tpu_torch.ops.kernels import _lib
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (B, T, S, Cin, Cout) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 
 
 def rows_from_conv3d(weight: torch.Tensor) -> torch.Tensor:
@@ -56,10 +59,17 @@ def temporal_conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     """x: (B, T, S, Cin); w: (Cout, 3*Cin); b: (Cout,). SAME zero padding
     over T, as torch Conv3d((3,1,1), padding=(1,0,0)). Returns
     (B, T, S, Cout) in x.dtype. A CPU tensor takes the plain twin; a CUDA
-    tensor launches the kernel or raises."""
-    global launches
+    tensor launches the kernel or raises. Under grad the backward is the
+    twin's VJP for x, w and b (a Conv3d weight reaches w through
+    `rows_from_conv3d`, whose own backward then applies)."""
     if not x.is_cuda:
         return temporal_conv3_plain(x, w, b)
+    spec = _lib.KernelSpec(_launch, temporal_conv3_plain, sys.modules[__name__])
+    return _lib.launch(spec, x, w, b)
+
+
+def _launch(x, w, b):
+    global launches
     bsz, t, s, cin = x.shape
     cout = w.shape[0]
     _lib.require(x, "x", torch.bfloat16)

@@ -39,6 +39,9 @@ operations.
 
 from __future__ import annotations
 
+import sys
+from functools import partial
+
 import torch
 
 from viewcrafter_tpu_torch.ops.kernels import _lib
@@ -46,6 +49,7 @@ from viewcrafter_tpu_torch.ops.kernels.ff_layer import _layer_norm
 
 launches = 0  # wrapper calls that launched the CUDA kernels
 sites: dict = {}  # (B, T, S, C, heads, dim_head) -> launches at that shape
+backward_plain = 0  # backward passes through the plain twin's VJP
 
 
 def fused_temporal_layer_plain(x, ln_w, ln_b, wqkv, wo, bo, *, heads: int,
@@ -72,11 +76,18 @@ def fused_temporal_layer(x, ln_w, ln_b, wqkv, wo, bo, *, heads: int, dim_head: i
     projection, shaped like x (the caller adds the residual). Weights in
     nn.Linear layout, inner = heads*dim_head: wqkv (3 inner, C), wo
     (C, inner), bo (C,). A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernels or raises."""
-    global launches
+    launches the kernels or raises. Under grad the backward is the twin's
+    VJP for x and every weight."""
+    kw = dict(heads=heads, dim_head=dim_head, eps=eps)
     if not x.is_cuda:
-        return fused_temporal_layer_plain(x, ln_w, ln_b, wqkv, wo, bo, heads=heads,
-                                          dim_head=dim_head, eps=eps)
+        return fused_temporal_layer_plain(x, ln_w, ln_b, wqkv, wo, bo, **kw)
+    spec = _lib.KernelSpec(partial(_launch, **kw), partial(fused_temporal_layer_plain, **kw),
+                           sys.modules[__name__])
+    return _lib.launch(spec, x, ln_w, ln_b, wqkv, wo, bo)
+
+
+def _launch(x, ln_w, ln_b, wqkv, wo, bo, *, heads: int, dim_head: int, eps: float):
+    global launches
     b, t, s, c = x.shape
     inner = heads * dim_head
     if c % 8 or heads < 1:

@@ -22,6 +22,14 @@ The process group comes from the torchrun environment (`init_distributed`)
 with the backend its caller names: "nccl" for one card per rank, "gloo" on
 the CPU or for ranks that share a card. gloo moves CUDA tensors through the
 host; the collectives here stage them there explicitly.
+
+Under grad mode the two collectives the model makes differentiate, with the
+transposes of the JAX package's: the backward of `all_gather` is a
+reduce-scatter (the sum of every rank's gradient of the gathered tensor, of
+which each rank keeps its own block), the backward of `all_reduce_sum` is
+`all_reduce_sum`. Both are staged through the host under gloo as the forward
+is. A training step sums each rank's loss: rank r's gradient of the gathered
+clip covers every rank's frames, and the sum over ranks is the whole loss's.
 """
 
 from __future__ import annotations
@@ -139,9 +147,17 @@ def _staged(x: torch.Tensor, group) -> bool:
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's `x` of `group`, concatenated in rank order along `dim`
-    (the list form of all_gather, which gloo and NCCL both carry)."""
+    (the list form of all_gather, which gloo and NCCL both carry). Under
+    grad mode an `x` that requires grad gets the reduce-scatter as its
+    backward."""
     if group is None or dist.get_world_size(group) == 1:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, group, dim)
+    return _all_gather(x, group, dim)
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     src = x.detach().contiguous()
     staged = _staged(src, group)
     if staged:
@@ -154,14 +170,50 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's `x` of `group`, on every rank."""
+    """The sum of every rank's `x` of `group`, on every rank. Under grad mode
+    an `x` that requires grad gets `all_reduce_sum` as its backward."""
     if group is None or dist.get_world_size(group) == 1:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceSum.apply(x, group)
+    return _all_reduce_sum(x, group)
+
+
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     buf = x.detach().contiguous()
     staged = _staged(buf, group)
     buf = buf.cpu() if staged else buf.clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(x.device) if staged else buf
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather along `dim`; backward: reduce-scatter (the sum over the
+    group's ranks, then this rank's block of `dim`)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _all_reduce_sum(grad, ctx.group)
+        index = dist.get_rank(ctx.group)
+        return total.narrow(ctx.dim, index * ctx.n, ctx.n), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce_sum; backward: all_reduce_sum of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_sum(grad, ctx.group), None
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:

@@ -24,11 +24,17 @@ port parameter left unfilled, a checkpoint key a map needs and does not
 find, or a shape that differs raises with the list of keys; checkpoint keys
 no map takes are ignored), and their inverses `lvdm_to_reference` and
 `dust3r_to_reference`, which write port weights under the reference's names.
+
+The training loop's own save/resume (`save_params` / `load_params`) is the
+other half: the JAX package writes its loop state with orbax, the port with
+`torch.save`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import dataclasses
+import importlib
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -516,3 +522,56 @@ def dust3r_to_reference(state: Mapping, dust3r_cfg: Dust3rConfig) -> Dict[str, t
     """A port DUSt3R state dict -> the released checkpoint's names (both
     decoders written)."""
     return _inverse(lambda w: map_dust3r(w, dust3r_cfg), state)
+
+
+# ---------------------------------------------------------------------------
+# our own save/resume
+# ---------------------------------------------------------------------------
+
+
+def _encode(obj: Any) -> Any:
+    """A loop state as dicts, lists, tensors and numbers: a dataclass of this
+    package under its qualified name, a torch.Generator as its device and
+    state."""
+    if dataclasses.is_dataclass(obj):
+        cls = type(obj)
+        return {"__dataclass__": f"{cls.__module__}:{cls.__qualname__}",
+                **{f.name: _encode(getattr(obj, f.name)) for f in dataclasses.fields(obj)}}
+    if isinstance(obj, torch.Generator):
+        return {"__generator__": str(obj.device), "state": obj.get_state()}
+    if isinstance(obj, dict):
+        return {k: _encode(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_encode(v) for v in obj)
+    return obj
+
+
+def _decode(obj: Any, device) -> Any:
+    if isinstance(obj, dict):
+        if "__dataclass__" in obj:
+            module, name = obj["__dataclass__"].split(":")
+            if module.split(".")[0] != __name__.split(".")[0]:
+                raise ValueError(f"a saved state names a class outside this package: {module}")
+            cls = getattr(importlib.import_module(module), name)
+            return cls(**{k: _decode(v, device) for k, v in obj.items() if k != "__dataclass__"})
+        if "__generator__" in obj:  # on the device it draws on, where it was saved
+            gen = torch.Generator(device=obj["__generator__"])
+            gen.set_state(obj["state"].cpu())
+            return gen
+        return {k: _decode(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_decode(v, device) for v in obj)
+    return obj
+
+
+def save_params(path: str, state: Any) -> None:
+    """Write a training loop's whole state (`train_loop.LoopState`: the
+    master weights, the optimizer state, the step, the EMA and the
+    generator's state) to `path` with torch.save."""
+    torch.save(_encode(state), path)
+
+
+def load_params(path: str, device=None) -> Any:
+    """The state `save_params` wrote, its tensors on `device` (default:
+    where they were saved), its generator where it was saved."""
+    return _decode(torch.load(path, map_location=device, weights_only=True), device)
