@@ -64,10 +64,10 @@ Phases, each printing JSON lines:
            pairs, the cloud cleaned, 2 segments of 25 frames); fullkv 24
            launches in the encoder and 48 in the decoder
   iterative
-           single_view_nbv from the seeded photo: 3 passes of 2, 6 and 10
-           images (2, 30 and 90 pairs, the decoder in chunks of 8 pairs);
-           per pass the chosen candidate and fullkv's 24/48, 24/192 and
-           48/576 launches (encoder/decoder)
+           single_view_nbv from the seeded photo, cut to its first 2 of 3
+           passes (NBV_PASSES): 2 and 6 images (2 and 30 pairs, the decoder
+           in chunks of 8 pairs); per pass the chosen candidate and fullkv's
+           24/48 and 24/192 launches (encoder/decoder)
   eval     single_view_eval on the first 6 frames of test/eval1 (6 seeded
            numpy views without PIL): 30 pairs, then frame 0 duplicated
            (fullkv 24/192, then 24/48). Its render must cover pixels in
@@ -104,13 +104,40 @@ Phases, each printing JSON lines:
            under torch.profiler split on the device timeline into forward,
            backward, optimizer and EMA (`phase_split`), with its kernel
            categories
+  pretrain_wiring
+           a small DUSt3R (linear head) and a small CroCo, 128 wide with 2
+           heads of 64 at 128x256 (128 tokens; CroCo's visible 64), so that
+           fullkv takes every attention: 3 steps each of
+           `make_dust3r_train_step` (symmetrized) and
+           `make_croco_pretrain_step` (fixed masks) on the card (bf16, float32
+           master weights) against the CPU in float32 from the same weights
+           and batches, within `compare_runs`' tolerance (the CPU's bf16 run
+           the yardstick); fullkv forward and backward at every attention;
+           the CroCo translator's round trip of the card's weights; then both
+           at dp 2 on 2 gloo ranks sharing cuda:0 against the single rank
+  dust3r_train
+           DUSt3R fine-tuning at full width and depth: `make_dust3r_train_step`
+           on `dust3r_512` (0.57 B parameters), ConfLoss(Regr3D) alpha 0.2,
+           mode plain, symmetrized, B = 4 pairs at 384x512 (S = 768) from
+           `SyntheticMultiviewGenerator` rendered on the card in the
+           Co3dPairDataset layout, the references' AdamW in its warmup, 4
+           steps: s/step, peak memory, the step profiled into forward,
+           backward and optimizer, fullkv's launches and backward passes per
+           step and site, as counted, against the count from the code (per
+           model call 24 at (8,768,768,16,64) and 48 at (4,768,768,12,64),
+           two calls a step)
+  croco_pretrain
+           `make_croco_pretrain_step` on the published CroCo (ViT-B encoder,
+           512/8/16 decoder, 224x224, mask ratio 0.9), 16 synthetic pairs, 4
+           steps: s/step, peak memory; no kernel launches, and why (the
+           gate's answer at each attention shape)
   kernel_grads
            every kernel with a backward (all but `fused_spatial_layer`)
-           under grad at every site the two phases above launched it with,
+           under grad at every site the training phases launched it with,
            plus KERNEL_GRAD_EXTRA for the one they do not reach: the output
            carries `KernelFunction`'s grad_fn, agrees with the twin's, and
-           every input's gradient is the twin's (the backward is the twin's
-           VJP: expected bit-equal, held to the kernel rule); the backward's
+           every input's gradient is the twin's, bit for bit (the backward
+           is the twin's VJP); the backward's
            and the forward's ms; then `fused_spatial_layer` must raise under
            grad
   train_sharded_wiring
@@ -143,10 +170,10 @@ Phases, each printing JSON lines:
            the CPU's float32 run at `run_wiring`'s tolerance
   sharded_tp
            tensor parallelism at full width: `viewcrafter_25`, B = 1, K = 2,
-           default routes, 2 DDIM steps, the UNet's heads and channels over
-           tp (dp 1 x tp 2) as 2 gloo ranks on cuda:0, and on 2 cards over
-           NCCL where the machine has them, against `sharded_cfg_dp`'s
-           unsharded reference at its tolerance; each rank line adds the
+           default routes, 1 DDIM step (TP_STEPS), the UNet's heads and
+           channels over tp (dp 1 x tp 2) as 2 gloo ranks on cuda:0, and on 2
+           cards over NCCL where the machine has them, against the unsharded
+           run of as many steps at `sharded_cfg_dp`'s tolerance; each rank line adds the
            all-reduces' count, seconds and GiB per step and the rank's launch
            sites (its local heads and widths), and every rank must launch the
            main path's kernels as often per UNet eval as the unsharded run
@@ -178,7 +205,9 @@ Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
 Then one {"kernels": [...]} line (every row but the spatial layer's has
 "backward": the plain twin's VJP at its costliest training site with its ms,
-and the train phase's launches and backward passes per step; the fullkv row also lists its DUSt3R sites
+and the train phase's launches and backward passes per step, the fullkv
+row's also the dust3r_train sites with the launches and backward passes of
+each step there, as counted, and both directions' times; the fullkv row also lists its DUSt3R sites
 under "dust3r_sites", with the launches of each geometry pass that ran them;
 every row lists the sites `sharded_tp`'s ranks launched it at under
 "tp_sites", with both ranks' launches),
@@ -206,12 +235,37 @@ PIPELINE_NITER, PIPELINE_STEPS = 300, 2
 CHECKPOINT_NITER = 10  # aligner steps of the checkpoint phase's DUSt3R run
 RELPOS_CAUSAL = {"use_relative_position": True, "use_causal_attention": True}
 SHARDED_STEPS, SHARDED_SEED = 2, 5  # the sharded phases' DDIM steps and input seed
+# sharded_tp's DDIM steps: one, not SHARDED_STEPS (~35-45 s a step through
+# gloo's host-staged all-reduces), to keep the script near 720 s with the
+# DUSt3R and CroCo training phases
+TP_STEPS = 1
 SPAWN_TIMEOUT = 600  # seconds for a sharded phase's ranks to finish
 EVAL_FRAMES = 6  # frames of the eval phase's clip (test/eval1 has 25)
+# single_view_nbv's passes in the iterative phase (of the mode's 3): the third
+# (10 views, ~35-44 s) was cut to keep the script near 720 s when the DUSt3R
+# and CroCo training phases came in. Of its fullkv sites only the encoder's
+# batch of 8 images (10 encoded as 8 + 2) is launched nowhere else: the
+# kernels phase checks it all the same (NBV_PASS3_SITE)
+NBV_PASSES = 2
+NBV_PASS3_SITE = (8, 576, 576, 16, 64)
 SPATIAL_OP_SHAPES = ((50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64))  # (B, S, heads, D)
 TRAIN_STEPS, PROFILED_STEP = 4, 4  # the full-width train phase's steps, and the one profiled
 TRAIN_WIRING_STEPS = 3
 TRAIN_SEED = 11
+# the training phases' check that the weights moved at step 2 compares this
+# many leading elements of each of the four largest master weights (a small
+# copy, so that the check adds nothing visible to the peak memory)
+CHANGE_PROBE = 1 << 16
+PRETRAIN_WIRING_STEPS = 3
+# DUSt3R fine-tuning and CroCo pretraining on the card: the references'
+# AdamW (betas 0.9 / 0.95, weight decay 0.05) at their peak learning rates
+# (DUSt3R's 512 recipe 1e-4; CroCo's base 1.5e-4 scaled by the batch over
+# 256), each step of the run inside a linear warmup of PRETRAIN_WARMUP steps
+# from 0, as the references' runs start
+DUST3R_STEPS, DUST3R_PAIRS, DUST3R_RES, DUST3R_LR = 4, 4, (384, 512), 1e-4
+CROCO_STEPS, CROCO_PAIRS = 4, 16
+CROCO_LR = 1.5e-4 * CROCO_PAIRS / 256
+PRETRAIN_WARMUP = 100
 # a kernel no training phase launches gets its backward checked here: the
 # long clip's temporal attention at B = 1 (the 512 model at 40 frames), and
 # at the wiring config's width
@@ -681,7 +735,8 @@ def is_annotation(evt) -> bool:
 
 def phase_split(prof) -> dict:
     """The profiled train step's phases on the device timeline: forward,
-    optimizer and EMA from their `record_function` ranges, the backward
+    optimizer and EMA (where the step has one) from their `record_function`
+    ranges, the backward
     from the end of the forward to the start of the optimizer (autograd
     launches it from its own thread, outside any range of the main one);
     for each the span and the kernel time that starts inside it (ms)."""
@@ -697,8 +752,9 @@ def phase_split(prof) -> dict:
         elif not is_annotation(evt):
             kernels.append((t.start, t.end - t.start))
     fwd, opt = spans["train_step.forward"], spans["train_step.optimizer"]
-    phases = {"forward": fwd, "backward": (fwd[1], opt[0]), "optimizer": opt,
-              "ema": spans["train_loop.ema"]}
+    phases = {"forward": fwd, "backward": (fwd[1], opt[0]), "optimizer": opt}
+    if "train_loop.ema" in spans:  # the pretraining steps keep no EMA
+        phases["ema"] = spans["train_loop.ema"]
     return {name: {"span_ms": (b - a) / 1e3,
                    "kernel_ms": sum(d for start, d in kernels if a <= start < b) / 1e3}
             for name, (a, b) in phases.items()}
@@ -1016,7 +1072,7 @@ def eval_clip(n: int, h: int, w: int):
 
 
 def run_mode(phase: str, mode: str, images: list, fullkv_per_dust3r: list, frames: int,
-             cuts: list, covered: slice, **opt_kw) -> tuple:
+             cuts: list, covered: slice, nbv_passes: int = 3, **opt_kw) -> tuple:
     """`ViewCrafterPipeline.run()` in `mode` at dust3r_512 + viewcrafter_25,
     PIPELINE_NITER alignment steps, PIPELINE_STEPS DDIM steps per diffusion
     call, seeded random weights, default routes. One line per pass (a pass
@@ -1034,8 +1090,9 @@ def run_mode(phase: str, mode: str, images: list, fullkv_per_dust3r: list, frame
     launched the four main-path kernels as the main path does, the videos
     are finite with `frames` frames at 576x1024, and every pass's render
     covers some pixels in the frames `covered` selects. In single_view_eval
-    a line says what its render sees (`eval_geometry`). Returns (result,
-    launch sites, [(pass, DUSt3R fullkv sites)])."""
+    a line says what its render sees (`eval_geometry`). `nbv_passes` goes to
+    the pipeline (single_view_nbv's passes). Returns (result, launch sites,
+    [(pass, DUSt3R fullkv sites)])."""
     import re
     import tempfile
 
@@ -1058,7 +1115,8 @@ def run_mode(phase: str, mode: str, images: list, fullkv_per_dust3r: list, frame
                                 out_dir=out_dir, exp_name=phase, ckpt_path=None,
                                 model_path=None, **opt_kw)
         t0 = time.perf_counter()
-        pipe = ViewCrafterPipeline(opts, on_stage=on_stage)  # device=None: the card
+        pipe = ViewCrafterPipeline(opts, on_stage=on_stage,  # device=None: the card
+                                   nbv_passes=nbv_passes)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         align, render = pipe.run_dust3r, pipe.run_render
@@ -1543,7 +1601,7 @@ def spawn_phase(phase: str, spec: dict, world: int, backend: str, devices: list,
     return res, [r["sites"] for r in ranks]
 
 
-def unsharded_reference(phase: str, cfg, smi: str) -> dict:
+def unsharded_reference(phase: str, cfg, smi: str, steps: int = SHARDED_STEPS) -> dict:
     """The reference of a full-width sharded phase: the unsharded
     `generate_staged` on this card (batched CFG) with the sharded phases'
     seeded weights and inputs, and the yardstick of rounding, the same with
@@ -1558,14 +1616,14 @@ def unsharded_reference(phase: str, cfg, smi: str) -> dict:
 
     eng = VideoDiffusionEngine(cfg)
     eng.init_params(seed=0)
-    inputs = sharded_inputs(eng, SHARDED_STEPS, SHARDED_SEED)
-    ref, ref_res = timed_generate(eng, inputs, SHARDED_STEPS, GuidanceConfig())
-    seq, seq_res = timed_generate(eng, inputs, SHARDED_STEPS, GuidanceConfig(sequential=True))
+    inputs = sharded_inputs(eng, steps, SHARDED_SEED)
+    ref, ref_res = timed_generate(eng, inputs, steps, GuidanceConfig())
+    seq, seq_res = timed_generate(eng, inputs, steps, GuidanceConfig(sequential=True))
     ref, seq = ref.double().cpu().numpy(), seq.cpu().numpy()
     diff = np.abs(seq - ref)
     yard = (float(diff.max()), float(diff.mean()))
     emit({"phase": f"{phase}_unsharded", "config": cfg.name,
-          "frames": list(inputs[0].shape), "steps": SHARDED_STEPS,
+          "frames": list(inputs[0].shape), "steps": steps,
           "s_per_step": ref_res["s_per_step"], "sequential_s_per_step": seq_res["s_per_step"],
           "peak_mem_gib": ref_res["peak_mem_gib"],
           "sequential_peak_mem_gib": seq_res["peak_mem_gib"],
@@ -1580,10 +1638,11 @@ def unsharded_reference(phase: str, cfg, smi: str) -> dict:
 
 
 def run_sharded(phase: str, cfg, dp: int, world: int, smi: str, nccl: bool = False,
-                tp: int = 1, reference=None) -> list:
-    """A sharded phase at full width against `reference`
-    (`unsharded_reference`, made here if not given; the same weights and
-    inputs): `world` ranks on cuda:0 over gloo with the mesh
+                tp: int = 1, reference=None, steps: int = SHARDED_STEPS) -> list:
+    """A sharded phase of `steps` DDIM steps at full width against
+    `reference` (`unsharded_reference` of as many steps, made here if not
+    given; the same weights and inputs): `world` ranks on cuda:0 over gloo
+    with the mesh
     make_mesh(world, dp, tp); with `nccl`, the same through one NCCL rank
     (without tp: one rank holds the whole mesh), and across `world` cards
     over NCCL where the machine has them. Returns the ranks' launch sites."""
@@ -1591,8 +1650,8 @@ def run_sharded(phase: str, cfg, dp: int, world: int, smi: str, nccl: bool = Fal
 
     from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
 
-    reference = reference or unsharded_reference(phase, cfg, smi)
-    spec = dict(cfg=cfg, state=None, weights_seed=0, seed=SHARDED_SEED, steps=SHARDED_STEPS,
+    reference = reference or unsharded_reference(phase, cfg, smi, steps)
+    spec = dict(cfg=cfg, state=None, weights_seed=0, seed=SHARDED_SEED, steps=steps,
                 guidance=GuidanceConfig(), dp=dp, tp=tp)
     runs = [(world, "gloo", ["cuda:0"] * world, spec)]
     if nccl and tp == 1:
@@ -1865,11 +1924,9 @@ def run_train(smi: str) -> tuple:
     import math
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from viewcrafter_tpu_torch.config import get_model_config
     from viewcrafter_tpu_torch.models.unet3d import UNet3D
-    from viewcrafter_tpu_torch.ops import kernels
     from viewcrafter_tpu_torch.train_loop import TrainLoop, TrainLoopConfig
 
     cfg = get_model_config("viewcrafter_25_512")
@@ -1884,51 +1941,31 @@ def run_train(smi: str) -> tuple:
     setup_s = time.perf_counter() - t0
     state_gib = torch.cuda.memory_allocated() / 2 ** 30
     batches = train_batches(cfg, TRAIN_STEPS, TRAIN_SEED, "cuda")
-    probe = [n for n, p in loop.model.named_parameters() if p.numel() > 1 << 20][:4]
-    records, snap, prof_box = [], {}, {}
-
-    def on_step(step, loss, grad_norm):
-        torch.cuda.synchronize()
-        records.append({"step": step, "t": time.perf_counter(), "loss": float(loss),
-                        "grad_norm": float(grad_norm), "launches": kernels.launch_counts(),
-                        "backward_plain": kernels.backward_plain_counts()})
-        if step in (1, 2):
-            snap[step] = {k: state.train.params[k].clone() for k in probe}
-        if step == PROFILED_STEP - 1:
-            prof_box["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof_box["prof"].__enter__()
-        elif step == PROFILED_STEP:
-            prof_box["prof"].__exit__(None, None, None)
-
-    kernels.reset_launches()
-    t_start = time.perf_counter()
-    loop.run(batches, None, state=state, on_step=on_step)
+    run = train_steps_on_card(
+        lambda on_step: loop.run(batches, None, state=state, on_step=on_step),
+        state.train.params, PROFILED_STEP)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    sites = kernels.launch_sites()
-    times = [t_start] + [r["t"] for r in records]
-    step_s = [b - a for a, b in zip(times, times[1:])]
-    per_step = [{k: r["launches"][k] - (records[i - 1]["launches"][k] if i else 0)
-                 for k in MAIN_KERNELS} for i, r in enumerate(records)]
-    back = [{k: r["backward_plain"][k] - (records[i - 1]["backward_plain"][k] if i else 0)
-             for k in MAIN_KERNELS} for i, r in enumerate(records)]
-    prof = prof_box["prof"]
-    breakdown = device_breakdown(prof, step_s[PROFILED_STEP - 1] * 1e3)
-    split = phase_split(prof)
-    changed = any(not torch.equal(snap[1][k], snap[2][k]) for k in probe)
+    records = run["records"]
+    sites = merge_sites(*(r["sites"] for r in records))
+    step_s = [r["s"] for r in records]
+    per_step = [{k: r["launches"][k] for k in MAIN_KERNELS} for r in records]
+    back = [{k: r["backward_plain"][k] for k in MAIN_KERNELS} for r in records]
+    split, breakdown = run["split"], run["profile"]
+    changed = run["changed_at_step_2"]
     res = {"phase": "train", "model": cfg.name, "unet_params": n_params,
            "batch": [1, cfg.video_length, cfg.height, cfg.width], "remat": loop.cfg.remat,
            "ema": loop.cfg.use_ema, "steps": TRAIN_STEPS, "setup_s": setup_s,
            "state_gib_before_step_1": state_gib, "step_s": step_s,
            "s_per_step": statistics.median(step_s[1:]), "peak_mem_gib": peak,
            "loss": [r["loss"] for r in records], "grad_norm": [r["grad_norm"] for r in records],
-           "lr": [float(loop.lr_fn(r["step"] - 1)) for r in records],
+           "lr": [float(loop.lr_fn(i)) for i in range(len(records))],
            "params_changed_at_step_2": changed, "launches_per_step": per_step,
            "backward_plain_per_step": back,
            "profiled_step": PROFILED_STEP, "split": split, "profile": breakdown,
            "nvidia_smi": smi,
            "sites": {k: [[list(site), n] for site, n in v.items()] for k, v in sites.items() if v}}
     emit(res)
-    del loop, state, batches, snap, prof_box, prof
+    del loop, state, batches, run
     torch.cuda.empty_cache()
     bad = [k for k in MAIN_KERNELS
            if not all(p[k] for p in per_step) or not all(b[k] for b in back)]
@@ -2031,7 +2068,7 @@ def grad_check(name: str, site, gen, peaks=None) -> dict:
            "forward_ms": time_ms(lambda: getattr(mod, name)(*leaves, **kw), reps=3, warmup=1)}
     del got, ref, ref_out, out, leaves, ref_leaves, args
     torch.cuda.empty_cache()
-    if not (res["grad_fn"] == "KernelFunctionBackward" and ran == 1 and worst["ok"]
+    if not (res["grad_fn"] == "KernelFunctionBackward" and ran == 1 and worst["ok"] and exact
             and fwd_err <= fwd_tol):
         raise AssertionError(f"kernel_grads: {res}")
     return res
@@ -2074,33 +2111,36 @@ def spatial_layer_refuses_grad() -> str:
                          "requires grad")
 
 
-def run_kernel_grads(gen, site_maps) -> dict:
+def run_kernel_grads(gen, site_maps) -> tuple:
     """Every kernel with a backward under grad at every site of `site_maps`
     (the training phases' launches) and KERNEL_GRAD_EXTRA (a kernel no
     training phase reaches): `grad_check` each; then `fused_spatial_layer`
     must raise under grad. Returns, per kernel, the site whose backward
-    takes longest with its times."""
+    takes longest with its times, and every check by kernel and site."""
     sites = merge_sites(*site_maps)
     for name, extra in KERNEL_GRAD_EXTRA.items():
         for site in extra:
             sites.setdefault(name, {}).setdefault(site, 0)
-    worst = {}
+    worst, checks = {}, {}
     for name in GRAD_KERNELS:
         if not sites.get(name):
             raise AssertionError(f"kernel_grads: no site of {name}")
         for site in sites[name]:
             res = grad_check(name, site, gen)
             emit(res)
+            checks.setdefault(name, {})[tuple(site)] = res
             if name not in worst or res["backward_ms"] > worst[name]["backward_ms"]:
                 worst[name] = res
     msg = spatial_layer_refuses_grad()
     emit({"phase": "kernel_grads", "checks": sum(len(v) for k, v in sites.items()
                                                  if k in GRAD_KERNELS),
           "spatial_layer_under_grad": msg[:200],
+          "grads_bit_equal": all(r["grads_bit_equal"] for c in checks.values()
+                                 for r in c.values()),
           "costliest_backward": {k: {key: v[key] for key in ("site", "backward_ms", "forward_ms",
                                                              "grads_bit_equal")}
                                  for k, v in worst.items()}})
-    return worst
+    return worst, checks
 
 
 def train_sharded_rank(spec: dict) -> dict:
@@ -2191,6 +2231,377 @@ def run_train_sharded_wiring(world: int = 4) -> tuple:
             or len({(tuple(r["loss"]), tuple(r["grad_norm"])) for r in ranks}) != 1):
         raise AssertionError(f"train_sharded_wiring: {res}")
     return res, [r["sites"] for r in ranks]
+
+
+# --------------------------------------------------------------------------
+# DUSt3R and CroCo training
+# --------------------------------------------------------------------------
+
+
+def pretrain_wiring_configs() -> dict:
+    """A small DUSt3R (linear head) and a small CroCo whose every attention
+    passes fullkv's gate: 128 wide, 2 heads of 64, 128x256 images (128
+    tokens; the CroCo masks half, so its visible tokens are 64)."""
+    from viewcrafter_tpu_torch.config import Dust3rConfig
+    from viewcrafter_tpu_torch.models.croco_pretrain import CroCoPretrainConfig
+
+    small = dict(img_size=(128, 256), enc_embed_dim=128, enc_depth=2, enc_num_heads=2,
+                 dec_embed_dim=128, dec_depth=2, dec_num_heads=2)
+    return {"dust3r": Dust3rConfig(**small, head_type="linear"),
+            "croco": CroCoPretrainConfig(**small, mask_ratio=0.5)}
+
+
+def pretrain_fullkv_per_step(kind: str, cfg) -> int:
+    """fullkv launches (and backward passes) of one pretraining step: for
+    DUSt3R a call launches once per encoder block (both views batched) and
+    four times per decoder depth (self and cross attention of two streams),
+    two calls a step (symmetrized); CroCo encodes its two views apart and
+    runs one decoder stream."""
+    if kind == "dust3r":
+        return 2 * (cfg.enc_depth + 4 * cfg.dec_depth)
+    return 2 * cfg.enc_depth + 2 * cfg.dec_depth
+
+
+def with_delta(run: dict, weights: dict) -> dict:
+    """A `_dryrun.pretrain_steps` result with the weights' change from
+    `weights` (float32 CPU tensors), as `compare_runs` takes it."""
+    return {**run, "delta": {k: run["params"][k] - weights[k].float() for k in weights}}
+
+
+def run_pretrain_wiring() -> tuple:
+    """The small DUSt3R (symmetrized) and CroCo train steps, PRETRAIN_WIRING_STEPS
+    each, on the card (bf16, float32 master weights) against the CPU in
+    float32, from the same weights and batches (the CroCo's masks fixed): the
+    losses, gradient norms and weight changes within `compare_runs`'
+    tolerance (the CPU's bf16 run against its float32 run the yardstick), and
+    fullkv launched forward and run backward at every attention of every
+    step; the CroCo translator's round trip of the card's trained weights;
+    then both at dp 2 on 2 gloo ranks sharing cuda:0 against the card's
+    single-rank run, at the same tolerance. Returns (result, launch sites)."""
+    import torch
+
+    from viewcrafter_tpu_torch import _dryrun
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.parallel import mesh as pm
+    from viewcrafter_tpu_torch.utils.checkpoint import (
+        croco_pretrain_from_reference, croco_pretrain_to_reference)
+
+    steps, lr = PRETRAIN_WIRING_STEPS, _dryrun.PRETRAIN_LR
+    res, sites, specs, ok = {"phase": "pretrain_wiring", "steps": steps, "lr": lr}, [], [], True
+    for kind, cfg in pretrain_wiring_configs().items():
+        weights = _dryrun.seeded_weights(kind, cfg, TRAIN_SEED)
+        batches = [_dryrun.pretrain_batch(kind, cfg, 2, seed=TRAIN_SEED + i) for i in range(steps)]
+        runs = {}
+        for name, device, dtype in (("card", "cuda", torch.bfloat16),
+                                    ("cpu_f32", "cpu", torch.float32),
+                                    ("cpu_bf16", "cpu", torch.bfloat16)):
+            kernels.reset_launches()
+            runs[name] = with_delta(_dryrun.pretrain_steps(kind, cfg, weights, batches, device,
+                                                           dtype), weights)
+            if name == "card":
+                counts, back = kernels.launch_counts(), kernels.backward_plain_counts()
+                sites.append(kernels.launch_sites())
+        cmp = compare_runs(runs["card"], runs["cpu_f32"], (runs["cpu_bf16"], runs["cpu_f32"]), lr)
+        want = steps * pretrain_fullkv_per_step(kind, cfg)
+        line = {"config": str(cfg), **{f"{k}_loss": runs[k]["loss"] for k in runs},
+                **{f"{k}_grad_norm": runs[k]["grad_norm"] for k in runs}, **cmp,
+                "fullkv_launches": counts["fullkv_attention"],
+                "fullkv_backward_plain": back["fullkv_attention"], "fullkv_expected": want,
+                "other_launches": sum(counts.values()) - counts["fullkv_attention"]}
+        ok &= (cmp["ok"] and counts["fullkv_attention"] == back["fullkv_attention"] == want
+               and line["other_launches"] == 0)
+        if kind == "croco":
+            ref = croco_pretrain_to_reference(runs["card"]["params"], cfg)
+            back_sd = croco_pretrain_from_reference(ref, cfg)
+            line["translator_round_trip_equal"] = set(back_sd) == set(runs["card"]["params"]) \
+                and all(torch.equal(back_sd[k], v) for k, v in runs["card"]["params"].items())
+            line["reference_keys"] = len(ref)
+            ok &= line["translator_round_trip_equal"]
+        res[kind] = line
+        specs.append({"kind": kind, "cfg": cfg, "batches": batches, "card": runs["card"],
+                      "yard": (runs["cpu_bf16"], runs["cpu_f32"]), "weights": weights})
+    # dp 2: both models in one spawn, a sample a rank
+    devices = ["cuda:0"] * 2
+    t0 = time.perf_counter()
+    ranks = pm.spawn(_dryrun.pretrain_on_mesh, 2, "gloo", devices=devices, timeout=SPAWN_TIMEOUT,
+                     args=({"devices": devices, "dtype": torch.bfloat16,
+                            "runs": [{k: sp[k] for k in ("kind", "cfg", "batches")} |
+                                     {"weights": {n: v.numpy() for n, v in sp["weights"].items()}}
+                                     for sp in specs]},))
+    res["dp2_spawn_wall_s"] = time.perf_counter() - t0
+    for i, sp in enumerate(specs):
+        got = ranks[0]["runs"][i]
+        got = with_delta({**got, "params": {k: torch.from_numpy(v)
+                                            for k, v in got["params"].items()}}, sp["weights"])
+        cmp = compare_runs(got, sp["card"], sp["yard"], lr)
+        want = steps * pretrain_fullkv_per_step(sp["kind"], sp["cfg"])
+        launched = [r["runs"][i]["launches"]["fullkv_attention"] for r in ranks]
+        res[sp["kind"]]["dp2"] = {"mesh": ranks[0]["mesh"], "loss": got["loss"],
+                                  "single_rank_loss": sp["card"]["loss"], **cmp,
+                                  "fullkv_launches_per_rank": launched}
+        same = len({tuple(r["runs"][i]["loss"]) for r in ranks}) == 1
+        ok &= cmp["ok"] and same and launched == [want] * 2
+        sites += [r["runs"][i]["sites"] for r in ranks]
+    emit(res)
+    if not ok:
+        raise AssertionError(f"pretrain_wiring: {res}")
+    return res, merge_sites(*sites)
+
+
+def reference_adamw(peak_lr: float):
+    """The DUSt3R and CroCo references' AdamW (betas 0.9 / 0.95, weight
+    decay 0.05, no clip) on a linear warmup from 0 to `peak_lr` over
+    PRETRAIN_WARMUP steps: step 1's lr is 0."""
+    from viewcrafter_tpu_torch.train_loop import AdamW, linear_schedule
+
+    return AdamW(linear_schedule(0.0, peak_lr, PRETRAIN_WARMUP), grad_clip=float("inf"),
+                 weight_decay=0.05, b2=0.95)
+
+
+def train_steps_on_card(drive, params: dict, profiled: int) -> dict:
+    """Record the train steps that `drive(on_step)` runs on the card, where
+    `on_step(step, loss, grad_norm, parts=None)` is called after each step
+    (`TrainLoop.run`'s hook, after its EMA update): per step the seconds,
+    the loss, the gradient norm, the loss's parts, and every kernel's
+    launches, backward passes, launch sites and backward passes per site
+    (the counts are reset before each step); whether the four largest
+    master weights of `params` changed at step 2 (step 1's lr is 0; their
+    first CHANGE_PROBE elements compared); step
+    `profiled` under torch.profiler, split into forward, backward, optimizer
+    and EMA where there is one (`phase_split`), with its kernel categories.
+    The hook's own work falls outside the steps' seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from viewcrafter_tpu_torch.ops import kernels
+
+    probe = sorted(params, key=lambda k: -params[k].numel())[:4]
+    recs, box = [], {}
+
+    def head(k):
+        return params[k].reshape(-1)[:CHANGE_PROBE]
+
+    def start(step):  # just before `step`
+        kernels.reset_launches()
+        if step == profiled:
+            box["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            box["prof"].__enter__()
+        torch.cuda.synchronize()
+        box["t"] = time.perf_counter()
+
+    def on_step(step, loss, grad_norm, parts=None):
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - box["t"]
+        if step == profiled:
+            box["prof"].__exit__(None, None, None)
+            box["split"] = phase_split(box["prof"])
+            box["profile"] = device_breakdown(box.pop("prof"), dt * 1e3)
+        recs.append({"s": dt, "loss": float(loss), "grad_norm": float(grad_norm),
+                     "parts": None if parts is None else {k: float(v) for k, v in parts.items()},
+                     "launches": kernels.launch_counts(),
+                     "backward_plain": kernels.backward_plain_counts(),
+                     "sites": kernels.launch_sites(), "backward_sites": kernels.backward_sites()})
+        if step == 1:
+            box["before"] = {k: head(k).clone() for k in probe}
+        elif step == 2:
+            box["changed"] = any(not torch.equal(box.pop("before")[k], head(k)) for k in probe)
+        start(step + 1)
+
+    start(1)
+    drive(on_step)
+    return {"records": recs, "changed_at_step_2": box.get("changed"), "split": box["split"],
+            "profile": box["profile"]}
+
+
+def pretrain_steps_on_card(step_fn, params: dict, n: int) -> dict:
+    """`train_steps_on_card` over `n` calls of `step_fn()` (a pretraining
+    step: (state, loss, grad_norm) or (state, loss, parts, grad_norm)), the
+    last one profiled."""
+
+    def drive(on_step):
+        for i in range(1, n + 1):
+            out = step_fn()
+            on_step(i, out[1], out[-1], out[2] if len(out) == 4 else None)
+
+    return train_steps_on_card(drive, params, n)
+
+
+def run_dust3r_train(smi: str) -> tuple:
+    """DUSt3R fine-tuning at full width and depth: `make_dust3r_train_step`
+    on `dust3r_512` (the released ViT-L encoder, Base decoder and DPT
+    heads), seeded weights in bf16 with float32 master weights,
+    ConfLoss(Regr3D) with alpha 0.2, mode plain, symmetrized; the
+    reference's AdamW (`reference_adamw`); B = DUST3R_PAIRS view pairs at
+    384x512 (S = 768 tokens) from `SyntheticMultiviewGenerator` rendered on
+    the card, in the Co3dPairDataset layout (`as_dust3r_pairs`);
+    DUST3R_STEPS steps. fullkv must launch at every attention, forward and
+    backward: per model call 24 encoder sites (2B, 768, 768, 16, 64) and 48
+    decoder sites (B, 768, 768, 12, 64), two calls a step, each launch with
+    its backward pass at its site, as counted. Returns (result, launch
+    sites, per fullkv site its launches and backward passes in each step)."""
+    import math
+
+    import torch
+
+    from viewcrafter_tpu_torch.config import get_dust3r_config
+    from viewcrafter_tpu_torch.data.synth_multiview import SyntheticMultiviewGenerator
+    from viewcrafter_tpu_torch.models.dust3r import Dust3rModel
+    from viewcrafter_tpu_torch.pretrain import collate_views, make_dust3r_train_step
+    from viewcrafter_tpu_torch.training import create_train_state
+
+    cfg = get_dust3r_config("dust3r_512")
+    h, w = DUST3R_RES
+    t0 = time.perf_counter()
+    views = SyntheticMultiviewGenerator(resolution=DUST3R_RES, seed=TRAIN_SEED, device="cuda")
+    pairs = [views.as_dust3r_pairs(i) for i in range(DUST3R_PAIRS)]
+    data_s = time.perf_counter() - t0
+    batch = {g: {k: v.cuda() for k, v in collate_views([p[j] for p in pairs]).items()}
+             for j, g in enumerate(("gt1", "gt2"))}
+    valid = [float(batch[g]["valid_mask"].float().mean()) for g in ("gt1", "gt2")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = Dust3rModel(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = reference_adamw(DUST3R_LR)
+    state = create_train_state(model, cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                               tx)
+    step = make_dust3r_train_step(model, tx, alpha=0.2, mode="plain", symmetrized=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run = pretrain_steps_on_card(lambda: step(state, batch), state.params, DUST3R_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b, s = DUST3R_PAIRS, (h // cfg.patch_size) * (w // cfg.patch_size)
+    enc = (2 * b, s, s, cfg.enc_num_heads, cfg.enc_embed_dim // cfg.enc_num_heads)
+    dec = (b, s, s, cfg.dec_num_heads, cfg.dec_embed_dim // cfg.dec_num_heads)
+    want = {enc: 2 * cfg.enc_depth, dec: 2 * 4 * cfg.dec_depth}
+    recs = run["records"]
+    fk_sites = [r["sites"]["fullkv_attention"] for r in recs]
+    fk_back = [r["backward_sites"]["fullkv_attention"] for r in recs]
+    others = [sum(r["launches"].values()) - r["launches"]["fullkv_attention"] for r in recs]
+    res = {"phase": "dust3r_train", "model": "dust3r_512", "params": n_params,
+           "batch_pairs": b, "image": [h, w], "tokens": s, "symmetrized": True, "alpha": 0.2,
+           "mode": "plain", "optimizer": {"peak_lr": DUST3R_LR, "warmup": PRETRAIN_WARMUP,
+                                          "betas": [0.9, 0.95], "weight_decay": 0.05},
+           "lr": [float(tx.lr_fn(i)) for i in range(DUST3R_STEPS)],
+           "steps": DUST3R_STEPS, "data_s": data_s, "valid_share": valid,
+           "setup_s": setup_s,
+           "step_s": [r["s"] for r in recs],
+           "s_per_step": statistics.median([r["s"] for r in recs[1:]]), "peak_mem_gib": peak,
+           "loss": [r["loss"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs],
+           "parts": [r["parts"] for r in recs], "weights_changed_at_step_2": run["changed_at_step_2"],
+           "fullkv_launches_per_step": [r["launches"]["fullkv_attention"] for r in recs],
+           "fullkv_backward_plain_per_step": [r["backward_plain"]["fullkv_attention"]
+                                              for r in recs],
+           "fullkv_expected_per_step": sum(want.values()),
+           "fullkv_sites_per_step": [[[list(k), n] for k, n in f.items()] for f in fk_sites],
+           "fullkv_backward_sites_per_step": [[[list(k), n] for k, n in f.items()]
+                                              for f in fk_back],
+           "fullkv_sites_expected": [[list(k), n] for k, n in want.items()],
+           "other_kernel_launches": others,
+           "profiled_step": DUST3R_STEPS, "split": run["split"], "profile": run["profile"],
+           "cuts": [f"{DUST3R_STEPS} steps", "seeded random weights",
+                    "synthetic scenes in place of CO3D / the reference's training mix"],
+           "nvidia_smi": smi}
+    emit(res)
+    # the sites as launched, and per site the launches and backward passes
+    # of each step, as counted
+    sites = merge_sites(*(r["sites"] for r in recs))
+    per_step = {k: {"launches": [f.get(k, 0) for f in fk_sites],
+                    "backward_plain": [f.get(k, 0) for f in fk_back]}
+                for k in set().union(*fk_sites, *fk_back)}
+    del model, state, step, batch, run
+    torch.cuda.empty_cache()
+    bad = [i for i in range(len(recs))
+           if fk_sites[i] != want or fk_back[i] != want or others[i]]
+    if not all(math.isfinite(x) for x in res["loss"]) or not res["weights_changed_at_step_2"] \
+            or bad:
+        raise AssertionError(f"dust3r_train: losses {res['loss']}, weights changed "
+                             f"{res['weights_changed_at_step_2']}, steps off the expected "
+                             f"fullkv launches or backward passes {bad}")
+    return res, sites, per_step
+
+
+def run_croco_pretrain(smi: str) -> dict:
+    """CroCo pretraining at the published width: `make_croco_pretrain_step`
+    on the default `CroCoPretrainConfig` (ViT-B encoder 768/12/12, decoder
+    512/8/16, 224x224, mask ratio 0.9), seeded weights in bf16 with float32
+    master weights, the reference's AdamW (`reference_adamw`); CROCO_PAIRS pairs from
+    `SyntheticMultiviewGenerator` at 224x224 drawn once, a new mask a step
+    from a card generator; CROCO_STEPS steps. It launches no kernel: its
+    196 tokens (20 visible) are no multiple of 64 and its decoder's heads
+    are 32 wide, so fullkv's gate (the JAX package's) sends every attention
+    to the plain path; the phase prints the gate's answer at each shape."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from viewcrafter_tpu_torch.data.synth_multiview import SyntheticMultiviewGenerator
+    from viewcrafter_tpu_torch.models.croco_pretrain import CroCoPretrain, CroCoPretrainConfig
+    from viewcrafter_tpu_torch.ops.kernels.fullkv_attention import supports_fullkv
+    from viewcrafter_tpu_torch.pretrain import make_croco_pretrain_step
+    from viewcrafter_tpu_torch.training import create_train_state
+
+    cfg = CroCoPretrainConfig()
+    t0 = time.perf_counter()
+    views = SyntheticMultiviewGenerator(resolution=cfg.img_size, seed=TRAIN_SEED + 1,
+                                        device="cuda")
+    pairs = [views.as_croco_pairs(i) for i in range(CROCO_PAIRS)]
+    data_s = time.perf_counter() - t0
+    batch = {f"img{j + 1}": torch.from_numpy(np.stack([p[j]["img"] for p in pairs])).cuda()
+             for j in range(2)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = CroCoPretrain(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = reference_adamw(CROCO_LR)
+    state = create_train_state(model, cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                               tx)
+    step = make_croco_pretrain_step(model, tx)
+    masks = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run = pretrain_steps_on_card(lambda: step(state, batch, generator=masks), state.params,
+                                 CROCO_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = (cfg.img_size[0] // cfg.patch_size) * (cfg.img_size[1] // cfg.patch_size)
+    vis, b = n - cfg.num_mask(n), CROCO_PAIRS
+    de, dd = cfg.enc_embed_dim // cfg.enc_num_heads, cfg.dec_embed_dim // cfg.dec_num_heads
+    gate = {"encoder_visible": [b, vis, cfg.enc_num_heads, de],
+            "encoder_whole": [b, n, cfg.enc_num_heads, de],
+            "decoder": [b, n, cfg.dec_num_heads, dd]}
+    recs = run["records"]
+    res = {"phase": "croco_pretrain", "config": str(cfg), "params": n_params, "pairs": b,
+           "optimizer": {"peak_lr": CROCO_LR, "warmup": PRETRAIN_WARMUP, "betas": [0.9, 0.95],
+                         "weight_decay": 0.05},
+           "lr": [float(tx.lr_fn(i)) for i in range(CROCO_STEPS)],
+           "steps": CROCO_STEPS, "data_s": data_s, "setup_s": setup_s,
+           "step_s": [r["s"] for r in recs],
+           "s_per_step": statistics.median([r["s"] for r in recs[1:]]), "peak_mem_gib": peak,
+           "loss": [r["loss"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs],
+           "weights_changed_at_step_2": run["changed_at_step_2"],
+           "kernel_launches_per_step": [sum(r["launches"].values()) for r in recs],
+           "fullkv_gate": {k: {"q_shape": v, "takes_kernel": supports_fullkv(v, v)}
+                           for k, v in gate.items()},
+           "no_kernel_because": f"{n} tokens ({vis} visible) are no multiple of 64 and the "
+                                f"decoder's heads are {dd} wide: fullkv's gate (the JAX "
+                                "package's) sends every attention to the plain path",
+           "split": run["split"], "profile": run["profile"],
+           "cuts": [f"batch {b} pairs (the reference's 64 a GPU)", f"{CROCO_STEPS} steps",
+                    "seeded random weights", "synthetic scenes in place of habitat-sim"],
+           "nvidia_smi": smi}
+    emit(res)
+    del model, state, step, batch, run
+    torch.cuda.empty_cache()
+    if (not all(math.isfinite(x) for x in res["loss"]) or not res["weights_changed_at_step_2"]
+            or any(res["kernel_launches_per_step"])
+            or any(g["takes_kernel"] for g in res["fullkv_gate"].values())):
+        raise AssertionError(f"croco_pretrain: {res}")
+    return res
 
 
 def wgmma_kernel_resources(log: str) -> list:
@@ -2362,12 +2773,14 @@ def main() -> int:
             ("sparse_interp", "sparse_view_interp", shifted_views(3, 24, h, w), [(24, 48)], 50,
              [f"{steps_cut} per segment"], slice(1, None)),
             ("iterative", "single_view_nbv", [pipeline_input(0, h, w)],
-             [(24, 48), (24, 192), (48, 576)], 25, [f"{steps_cut} per pass"], slice(1, None)),
+             [(24, 48), (24, 192)][:NBV_PASSES], 25,
+             [f"{steps_cut} per pass", f"{NBV_PASSES} of the mode's 3 passes"], slice(1, None)),
             # the eval render's frame 0 is the cloud at the identity camera,
             # where the two alignments meet (see eval_geometry)
             ("eval", "single_view_eval", clip, [(24, 192), (24, 48)], EVAL_FRAMES,
              [steps_cut, f"{EVAL_FRAMES} frames of the clip ({clip_source})"], slice(0, 1))):
-        _, sites_, passes = run_mode(phase, mode, images, fullkv, frames, cuts, covered)
+        _, sites_, passes = run_mode(phase, mode, images, fullkv, frames, cuts, covered,
+                                     nbv_passes=NBV_PASSES)
         mode_sites.append(sites_)
         dust3r_passes += [(phase, k, geo) for k, geo in passes]
 
@@ -2379,7 +2792,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, train_wiring_sites = run_train_wiring()
     train_res, train_sites = run_train(smi)
-    grad_worst = run_kernel_grads(gen, [train_sites, train_wiring_sites])
+    # DUSt3R and CroCo training: the small models card against CPU and at
+    # dp 2, DUSt3R fine-tuning at full width (fullkv forward and backward at
+    # every attention), CroCo pretraining at the published width
+    _, pretrain_sites = run_pretrain_wiring()
+    dust3r_res, dust3r_train_sites, dust3r_site_steps = run_dust3r_train(smi)
+    run_croco_pretrain(smi)
+    grad_worst, grad_checks = run_kernel_grads(
+        gen, [train_sites, train_wiring_sites, pretrain_sites, dust3r_train_sites])
     _, train_sharded_sites = run_train_sharded_wiring()
 
     # multi-device sampling: ranks spawned from here, each phase after the
@@ -2391,10 +2811,11 @@ def main() -> int:
     sharded_sites += run_sharded("sharded_sp", get_model_config("viewcrafter_16"), dp=1,
                                  world=2, smi=smi)
     sharded_sites += run_sharded_wiring(gen)
-    # tensor parallelism: the flagship's UNet over 2 ranks against the same
-    # reference, then every kernel on local slices at dp 2 x sp 2 x tp 2
+    # tensor parallelism: the flagship's UNet over 2 ranks against its own
+    # unsharded reference of TP_STEPS steps, then every kernel on local
+    # slices at dp 2 x sp 2 x tp 2
     tp_rank_sites = run_sharded("sharded_tp", flagship, dp=1, world=2, smi=smi, nccl=True, tp=2,
-                                reference=flagship_ref)
+                                steps=TP_STEPS)
     sharded_sites += tp_rank_sites
     sharded_sites += run_sharded_wiring(gen, "sharded_tp_wiring", tp_wiring_config(), world=8,
                                         tp=2, routes=True)
@@ -2404,10 +2825,12 @@ def main() -> int:
     # float32 shape (the paths are bf16 throughout). ROW_PATH only says which
     # path's launch count a kernel's row reports.
     sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites,
-                        train_wiring_sites, train_sites, *train_sharded_sites,
+                        train_wiring_sites, train_sites, *train_sharded_sites, pretrain_sites,
+                        dust3r_train_sites,
                         *sharded_sites, *(s["all"] for s in (main_sites, routes_sites, *pab_sites,
                                                              long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 32, 4, 1)] = 0
+    sites["fullkv_attention"].setdefault(NBV_PASS3_SITE, 0)
     emit({"phase": "kernel_sites", "count": {k: len(v) for k, v in sites.items()}})
     path_res = {"main": main_res, "routes": routes_res, "long": long_res, "op": op_res}
     path_sites = {"main": main_sites, "routes": routes_sites, "long": long_sites, "op": op_sites}
@@ -2453,6 +2876,22 @@ def main() -> int:
                               "mufu_bound_ms")}}
         for r in results["fullkv_attention"]
         if not r["variant"] and any(tuple(r["site"]) in geo for _, _, geo in dust3r_passes)]
+    # fullkv's backward at the DUSt3R fine-tuning sites: the launches and
+    # twin backward passes of each step, as counted, beside the forward's
+    # and the backward's times
+    fullkv_row["backward"]["dust3r_train_sites"] = [
+        {"site": list(site), "launches_per_step": dust3r_site_steps[site]["launches"],
+         "backward_plain_per_step": dust3r_site_steps[site]["backward_plain"],
+         "backward_ms": grad_checks["fullkv_attention"][site]["backward_ms"],
+         "forward_ms_under_grad": grad_checks["fullkv_attention"][site]["forward_ms"],
+         "grads_bit_equal": grad_checks["fullkv_attention"][site]["grads_bit_equal"],
+         **{k: r[k] for r in results["fullkv_attention"]
+            if not r["variant"] and tuple(r["site"]) == site
+            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+        for site in dust3r_train_sites["fullkv_attention"]]
+    fullkv_row["backward"]["dust3r_train_backward_plain_per_step"] = \
+        dust3r_res["fullkv_backward_plain_per_step"]
+    fullkv_row["backward"]["dust3r_train_s_per_step"] = dust3r_res["s_per_step"]
     # the main path's kernels at the local heads and widths of `sharded_tp`'s
     # ranks, with the launches of both ranks together
     tp_launches = merge_sites(*tp_rank_sites)

@@ -269,6 +269,44 @@ def test_kernel_gradients_are_the_twins(gen, name):
     assert res["grad_fn"] == "KernelFunctionBackward" and res["backward_plain_calls"] == 1
 
 
+@pytest.mark.parametrize("site", [(8, 768, 768, 16, 64), (4, 768, 768, 12, 64)])
+def test_fullkv_backward_at_the_dust3r_training_sites(gen, site):
+    """fullkv under grad at the sites of DUSt3R fine-tuning at 512x384 with
+    4 pairs (the encoder's 8 images with 16 heads, the decoders' 4 pairs
+    with 12): every gradient bit-equal to the twin's (`grad_check` raises
+    otherwise)."""
+    from chip_smoke import grad_check
+
+    res = grad_check("fullkv_attention", site, gen)
+    assert res["grads_bit_equal"] and res["backward_plain_calls"] == 1
+
+
+def test_small_dust3r_train_steps_match_cpu(gen):
+    """Two steps of the small DUSt3R of chip_smoke.py's pretrain_wiring
+    phase (linear head, every attention through fullkv, symmetrized) on
+    the card (bf16, float32 master weights) against the CPU's float32 run,
+    within twice the CPU bf16 run's distance plus the floors
+    (`compare_runs`); fullkv launched and run backward at every attention."""
+    from chip_smoke import (compare_runs, pretrain_fullkv_per_step, pretrain_wiring_configs,
+                            with_delta)
+    from viewcrafter_tpu_torch import _dryrun
+
+    cfg = pretrain_wiring_configs()["dust3r"]
+    weights = _dryrun.seeded_weights("dust3r", cfg, 3)
+    batches = [_dryrun.pretrain_batch("dust3r", cfg, 2, seed=s) for s in (4, 5)]
+    runs = {}
+    for name, device, dtype in (("card", "cuda", torch.bfloat16), ("f32", "cpu", torch.float32),
+                                ("bf16", "cpu", torch.bfloat16)):
+        fullkv_attention.launches, fullkv_attention.backward_plain = 0, 0
+        runs[name] = with_delta(_dryrun.pretrain_steps("dust3r", cfg, weights, batches, device,
+                                                       dtype), weights)
+        if name == "card":
+            counts = (fullkv_attention.launches, fullkv_attention.backward_plain)
+    assert counts == (2 * pretrain_fullkv_per_step("dust3r", cfg),) * 2
+    res = compare_runs(runs["card"], runs["f32"], (runs["bf16"], runs["f32"]), _dryrun.PRETRAIN_LR)
+    assert res["ok"], res
+
+
 def test_spatial_layer_raises_under_grad(gen):
     """`fused_spatial_layer` has no backward: a CUDA input that requires
     grad under grad mode raises."""

@@ -17,9 +17,15 @@ import viewcrafter_tpu_torch.align.rotations
 import viewcrafter_tpu_torch.app
 import viewcrafter_tpu_torch.cli
 import viewcrafter_tpu_torch.convert
+import viewcrafter_tpu_torch.data.co3d
+import viewcrafter_tpu_torch.data.datasets
+import viewcrafter_tpu_torch.data.synth_multiview
+import viewcrafter_tpu_torch.data.video_reader
 import viewcrafter_tpu_torch.geometry.trajectory
 import viewcrafter_tpu_torch.geometry.transforms
+import viewcrafter_tpu_torch.models.croco_pretrain
 import viewcrafter_tpu_torch.models.dust3r
+import viewcrafter_tpu_torch.models.dust3r_losses
 import viewcrafter_tpu_torch.models.lvdm
 import viewcrafter_tpu_torch.ops.kernels
 import viewcrafter_tpu_torch.ops.rasterize
@@ -28,6 +34,7 @@ import viewcrafter_tpu_torch.ops.rope2d
 import viewcrafter_tpu_torch.parallel
 import viewcrafter_tpu_torch.parallel.mesh
 import viewcrafter_tpu_torch.pipeline
+import viewcrafter_tpu_torch.pretrain
 import viewcrafter_tpu_torch.train_loop
 import viewcrafter_tpu_torch.training
 import viewcrafter_tpu_torch.utils.checkpoint

@@ -354,15 +354,22 @@ def test_kernel_function_backward_is_the_twins_vjp(name):
     """`KernelFunction` (the twin standing in for the launch): the output
     has a grad_fn, every input's gradient is the twin's own (chunked along
     the batch for the attention kernels, one row at a time here),
-    `backward_plain` counts the pass, and a launch that bypasses the
-    Function raises."""
+    `backward_plain` counts the pass and `backward_sites` counts it at the
+    site its launch counted, and a launch that bypasses the Function
+    raises."""
     from functools import partial
 
     mod = kernels.KERNEL_MODULES[name]
     args, kw = _kernel_cases()[name]
     twin = partial(getattr(mod, name + "_plain"), **kw)
     chunk = 1 if name in ("fullkv_attention", "dual_cross_attention") else None
-    spec = _lib.KernelSpec(twin, twin, mod, chunk)
+    site = ("site",)
+
+    def run(*a):  # the twin, counted at `site` as a launch is
+        mod.sites[site] = mod.sites.get(site, 0) + 1
+        return twin(*a)
+
+    spec = _lib.KernelSpec(run, twin, mod, chunk)
     kernels.reset_launches()
     leaves = [a.clone().requires_grad_(True) for a in args]
     out = _lib.launch(spec, *leaves)
@@ -370,6 +377,7 @@ def test_kernel_function_backward_is_the_twins_vjp(name):
     gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
     got = torch.autograd.grad(out, leaves, gout)
     assert mod.backward_plain == 1
+    assert kernels.backward_sites()[name] == {site: 1}
     ref_leaves = [a.clone().requires_grad_(True) for a in args]
     ref = torch.autograd.grad(twin(*ref_leaves), ref_leaves, gout)
     for k, (a, b) in enumerate(zip(got, ref)):
@@ -378,3 +386,4 @@ def test_kernel_function_backward_is_the_twins_vjp(name):
         assert _lib.launch(spec, *leaves).grad_fn is None  # no grad mode: a plain launch
     with pytest.raises(RuntimeError, match="requires grad"):
         _lib.require(leaves[0], "x", leaves[0].dtype)
+    kernels.reset_launches()

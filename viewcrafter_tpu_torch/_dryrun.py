@@ -41,8 +41,16 @@ updated parameter within ATOL (the step's gradients are a sum over the ranks
 in another order than the single device's, which float32 carries far below
 ATOL).
 
+Last, the pretraining steps over dp (`pretrain_dryrun`): a small DUSt3R
+(linear head, the step symmetrized) and a small CroCo, each one step of
+`pretrain.make_dust3r_train_step` / `make_croco_pretrain_step` at dp = N
+(batch N, a sample a rank) against the single-device step: the loss within
+rtol ATOL.
+
 `generate_on_mesh` and `diffuse_on_mesh` are also the rank targets of
-tests/test_torch_parallel.py, `train_on_mesh` of tests/test_torch_training.py.
+tests/test_torch_parallel.py, `train_on_mesh` of tests/test_torch_training.py,
+`pretrain_on_mesh` of tests/test_torch_pretrain.py and of `chip_smoke.py`'s
+pretrain_wiring phase.
 """
 
 from __future__ import annotations
@@ -295,6 +303,161 @@ def train_on_mesh(mesh_kw: dict) -> dict:
     return {**train_dryrun(mesh), "mesh": pm.mesh_shape(mesh)}
 
 
+# -- the pretraining steps ---------------------------------------------------
+
+PRETRAIN_LR = 1e-3
+
+
+def pretrain_configs():
+    """The small DUSt3R (linear head) and CroCo of the pretraining dry run
+    and tests: 32x32 images, one or two blocks of 32 channels, 2 heads."""
+    from viewcrafter_tpu_torch.config import Dust3rConfig
+    from viewcrafter_tpu_torch.models.croco_pretrain import CroCoPretrainConfig
+
+    small = dict(img_size=(32, 32), patch_size=16, enc_embed_dim=32, enc_depth=1,
+                 enc_num_heads=2, dec_embed_dim=32, dec_num_heads=2)
+    return {"dust3r": Dust3rConfig(**small, dec_depth=2, head_type="linear"),
+            "croco": CroCoPretrainConfig(**small, dec_depth=1, mask_ratio=0.5)}
+
+
+def pretrain_model(kind: str, cfg, device, dtype: torch.dtype = torch.float32):
+    """A `Dust3rModel` ("dust3r") or `CroCoPretrain` ("croco") of `cfg` on
+    `device`."""
+    from viewcrafter_tpu_torch.models.croco_pretrain import CroCoPretrain
+    from viewcrafter_tpu_torch.models.dust3r import Dust3rModel
+
+    with torch.device(device):
+        return (Dust3rModel if kind == "dust3r" else CroCoPretrain)(cfg, dtype=dtype)
+
+
+def dust3r_view(h: int, w: int, seed: int) -> dict:
+    """A seeded numpy view in the Co3dPairDataset layout (pose near the
+    identity, points 2 in front of it, every pixel valid)."""
+    r = np.random.default_rng(seed)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = r.standard_normal(3) * 0.1
+    return {"img": (r.standard_normal((h, w, 3)) * 0.3).astype(np.float32),
+            "pts3d": (r.standard_normal((h, w, 3)) + [0, 0, 2]).astype(np.float32),
+            "valid_mask": np.ones((h, w), bool), "camera_pose": pose}
+
+
+def pretrain_batch(kind: str, cfg, b: int, seed: int = SEED) -> dict:
+    """A seeded numpy batch of `b` samples: two collated view dicts for
+    DUSt3R, images and a mask (cfg.num_mask a row) for CroCo."""
+    from viewcrafter_tpu_torch.models.croco_pretrain import random_mask
+
+    h, w = cfg.img_size
+    if kind == "dust3r":
+        views = [dust3r_view(h, w, seed + i) for i in range(2 * b)]
+        return {g: {k: np.stack([v[k] for v in views[j::2]]) for k in views[0]}
+                for j, g in enumerate(("gt1", "gt2"))}
+    rng = np.random.default_rng(seed)
+    n = (h // cfg.patch_size) * (w // cfg.patch_size)
+    return {"img1": (rng.standard_normal((b, h, w, 3)) * 0.3).astype(np.float32),
+            "img2": (rng.standard_normal((b, h, w, 3)) * 0.3).astype(np.float32),
+            "mask": random_mask(torch.Generator().manual_seed(seed), b, n,
+                                cfg.num_mask(n)).numpy()}
+
+
+def pretrain_steps(kind: str, cfg, weights: Optional[dict], batches: list, device="cpu",
+                   dtype: torch.dtype = torch.float32, mesh=None, seed: int = 0) -> dict:
+    """`len(batches)` steps of the DUSt3R step (symmetrized, mode plain) or
+    the CroCo step from `weights` (a state dict; None: seeded from `seed`)
+    with `train_loop.adamw(PRETRAIN_LR)`, on `device` in `dtype`, over `mesh` when
+    given. Returns per step the loss and the gradient norm, and the final
+    master weights (CPU tensors)."""
+    from viewcrafter_tpu_torch.pretrain import make_croco_pretrain_step, make_dust3r_train_step
+    from viewcrafter_tpu_torch.train_loop import adamw
+    from viewcrafter_tpu_torch.training import create_train_state
+
+    model = pretrain_model(kind, cfg, device, dtype)
+    tx = adamw(PRETRAIN_LR)
+    init = torch.Generator(device=device).manual_seed(seed) if weights is None else weights
+    state = create_train_state(model, cfg, init, tx)
+    if kind == "dust3r":
+        step = make_dust3r_train_step(model, tx, mesh=mesh, symmetrized=True)
+    else:
+        step = make_croco_pretrain_step(model, tx, mesh=mesh)
+    losses, norms = [], []
+    for batch in batches:
+        if kind == "dust3r":
+            out = step(state, {g: {k: torch.as_tensor(v) for k, v in batch[g].items()}
+                               for g in ("gt1", "gt2")})
+        else:
+            out = step(state, {k: torch.as_tensor(batch[k]) for k in ("img1", "img2")},
+                       mask=torch.as_tensor(batch["mask"]))
+        losses.append(float(out[1]))
+        norms.append(float(out[-1]))
+    return {"loss": losses, "grad_norm": norms,
+            "params": {k: v.detach().float().cpu() for k, v in state.params.items()}}
+
+
+def pretrain_on_mesh(spec: dict) -> dict:
+    """Rank target: for each run of spec["runs"] (kind, cfg, weights as
+    numpy, batches), `pretrain_steps` at dp = world on spec["devices"] (this
+    rank's device) in spec["dtype"] (default float32). Returns the mesh and
+    per run the losses, the gradient norms, the kernels' launches, backward
+    passes and launch sites, and on rank 0 the final weights (numpy)."""
+    from viewcrafter_tpu_torch.ops import kernels
+
+    torch.set_num_threads(THREADS)
+    if torch.device(spec["devices"][0]).type == "cpu":
+        batch_invariant_cpu()
+    else:  # float32 products in full precision, as in the single-rank run
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = pm.make_mesh(dp=pm.world_size(), devices=spec["devices"])
+    device = pm.rank_device(spec["devices"])
+    out = []
+    for run in spec["runs"]:
+        weights = {k: torch.from_numpy(v) for k, v in run["weights"].items()}
+        kernels.reset_launches()
+        res = pretrain_steps(run["kind"], run["cfg"], weights, run["batches"], device,
+                             spec.get("dtype", torch.float32), mesh)
+        out.append({"kind": run["kind"], "loss": res["loss"], "grad_norm": res["grad_norm"],
+                    "launches": kernels.launch_counts(),
+                    "backward_plain": kernels.backward_plain_counts(),
+                    "sites": kernels.launch_sites(),
+                    "params": ({k: v.numpy() for k, v in res["params"].items()}
+                               if pm.rank() == 0 else None)})
+    return {"rank": pm.rank(), "mesh": pm.mesh_shape(mesh), "runs": out}
+
+
+def seeded_weights(kind: str, cfg, seed: int = SEED) -> dict:
+    """Seeded float32 weights of the pretraining model of `kind` at `cfg`,
+    on the CPU (`init_random_`)."""
+    from viewcrafter_tpu_torch.models.layers import init_random_
+
+    model = pretrain_model(kind, cfg, "cpu")
+    init_random_(model, torch.Generator().manual_seed(seed))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def pretrain_dryrun(world: int = 2, timeout: float = 300.0) -> dict:
+    """One DUSt3R and one CroCo step at dp = `world` on gloo CPU ranks (one
+    spawn) against the single-device step in this process: raises unless
+    each loss is within rtol ATOL; returns the relative errors."""
+    runs = [{"kind": kind, "cfg": cfg, "batches": [pretrain_batch(kind, cfg, world)],
+             "weights": {k: v.numpy() for k, v in seeded_weights(kind, cfg).items()}}
+            for kind, cfg in pretrain_configs().items()]
+    ranks = pm.spawn(pretrain_on_mesh, world, "gloo", devices=["cpu"] * world,
+                     args=({"runs": runs, "devices": ["cpu"] * world},), timeout=timeout)
+    batch_invariant_cpu()
+    errs = {}
+    for i, run in enumerate(runs):
+        ref = pretrain_steps(run["kind"], run["cfg"],
+                             {k: torch.from_numpy(v) for k, v in run["weights"].items()},
+                             run["batches"])
+        got = [r["runs"][i]["loss"] for r in ranks]
+        if any(g != got[0] for g in got):
+            raise AssertionError(f"{run['kind']}: the ranks report other losses: {got}")
+        errs[run["kind"]] = abs(got[0][0] - ref["loss"][0]) / abs(ref["loss"][0])
+        if not errs[run["kind"]] <= ATOL:
+            raise AssertionError(f"{run['kind']}: dp {world} loss {got[0][0]} against "
+                                 f"{ref['loss'][0]} single-device (rtol {ATOL})")
+    return errs
+
+
 def main(n: int) -> None:
     errs = inference_dryrun(n)
     print(f"sharded inference ok on {n} gloo CPU ranks (sample dp, CFG-branch dp, frame "
@@ -305,6 +468,9 @@ def main(n: int) -> None:
     print(f"sharded train step ok on {n} gloo CPU ranks (mesh {res['mesh']}, loss "
           f"{res['loss']:.6g}; against single-device, atol {ATOL}: loss {res['loss_err']:.3g}, "
           f"weights {res['weights_err']:.3g})", flush=True)
+    errs = pretrain_dryrun(n)
+    print(f"sharded pretraining steps ok at dp {n} on gloo CPU ranks (against single-device, "
+          f"rtol {ATOL}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -91,3 +91,10 @@ def dust3r_from_jax_params(params) -> dict:
     without the `{"params": ...}` wrapper) -> a state dict for the port's
     `models.dust3r.Dust3rModel`."""
     return convert_tree(params, conv_transpose=DUST3R_CONV_TRANSPOSE)
+
+
+def croco_pretrain_from_jax_params(params) -> dict:
+    """The JAX package's `CroCoPretrain` parameter tree -> a state dict for
+    the port's `models.croco_pretrain.CroCoPretrain` (the mask token keeps
+    its name and shape)."""
+    return convert_tree(params)

@@ -263,6 +263,8 @@ class DPTHead(nn.Module):
     """Multi-scale token pyramid -> dense (3+conf) map, all float32
     (dpt_head.py:34-65, dpt_block.py:341-410)."""
 
+    float32_module = True  # `cast_weights` leaves it in float32
+
     def __init__(self, cfg: Dust3rConfig):
         super().__init__()
         self.cfg = cfg
@@ -307,6 +309,8 @@ class DPTHead(nn.Module):
 class LinearHead(nn.Module):
     """Pixel-shuffle linear head alternative (linear_head.py:12-41)."""
 
+    float32_module = True
+
     def __init__(self, cfg: Dust3rConfig):
         super().__init__()
         self.cfg = cfg
@@ -336,8 +340,7 @@ class Dust3rModel(nn.Module):
         head_cls = DPTHead if cfg.head_type == "dpt" else LinearHead
         self.head1 = head_cls(cfg)
         self.head2 = head_cls(cfg)
-        cast_weights(self.encoder, dtype)
-        cast_weights(self.decoder, dtype)
+        cast_weights(self, dtype)  # the heads stay float32
 
     def _hooked(self, enc_out, dec_outs) -> List[torch.Tensor]:
         # hooks [0, 2/4*d, 3/4*d, d] over [enc, dec_1..dec_d] (dpt_head.py:107)

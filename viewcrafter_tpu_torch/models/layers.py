@@ -158,14 +158,23 @@ def silu(x):
     return x * torch.sigmoid(x.float()).to(x.dtype)
 
 
+def _cast_targets(module: nn.Module):
+    """`module` and its submodules, without the norms and without the
+    subtrees of modules that set `float32_module` (they compute in float32)."""
+    if isinstance(module, (GroupNorm32, LayerNormF32)) or getattr(module, "float32_module", False):
+        return
+    yield module
+    for child in module.children():
+        yield from _cast_targets(child)
+
+
 def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every parameter outside the norm modules to `dtype`; norm
     parameters stay float32, and so do those a module lists in its
-    `float32_params`. Conv weights are stored channels-last, the layout of
+    `float32_params` and every parameter under a module that sets
+    `float32_module`. Conv weights are stored channels-last, the layout of
     the activations, so cuDNN does not re-layout them per call."""
-    for mod in module.modules():
-        if isinstance(mod, (GroupNorm32, LayerNormF32)):
-            continue
+    for mod in _cast_targets(module):
         keep = getattr(mod, "float32_params", ())
         for name, p in mod.named_parameters(recurse=False):
             if name not in keep:

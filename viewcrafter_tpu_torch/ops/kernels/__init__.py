@@ -35,6 +35,7 @@ def reset_launches() -> None:
         mod.sites = {}
         if hasattr(mod, "backward_plain"):
             mod.backward_plain = 0
+            mod.backward_sites = {}
 
 
 def launch_counts() -> dict:
@@ -45,6 +46,13 @@ def backward_plain_counts() -> dict:
     """Per kernel with a backward, its backward passes since the last reset."""
     return {name: mod.backward_plain for name, mod in KERNEL_MODULES.items()
             if hasattr(mod, "backward_plain")}
+
+
+def backward_sites() -> dict:
+    """Per kernel with a backward, its backward passes per launch site since
+    the last reset."""
+    return {name: dict(mod.backward_sites) for name, mod in KERNEL_MODULES.items()
+            if hasattr(mod, "backward_sites")}
 
 
 def launch_sites() -> dict:

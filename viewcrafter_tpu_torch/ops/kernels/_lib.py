@@ -15,9 +15,10 @@ forward launches the kernel as the wrapper does, saves the inputs, and its
 backward recomputes the kernel's plain twin on them under `enable_grad` and
 returns the twin's VJP for every input that needs one (weights and biases
 included), one batch chunk at a time where the twin chunks its logits. Each
-backward adds one to the kernel module's `backward_plain`. A launch that
-bypasses the Function with such an input raises (`require`), so no kernel
-drops the graph silently.
+backward adds one to the kernel module's `backward_plain`, and one to its
+`backward_sites` at the launch site (the `sites` key) its forward counted.
+A launch that bypasses the Function with such an input raises (`require`),
+so no kernel drops the graph silently.
 """
 
 from __future__ import annotations
@@ -184,9 +185,9 @@ class KernelSpec(NamedTuple):
     """One kernel call as `KernelFunction` sees it: `run` launches the
     kernel, `twin` is its plain torch version (both take the call's tensors
     positionally, with its other arguments bound), `module` the kernel's
-    module (its `backward_plain` counts the backward passes), `chunk` the
-    rows of dim 0 the twin's VJP takes at a time (None: all at once; every
-    input then shares that batch dim)."""
+    module (its `backward_plain` and `backward_sites` count the backward
+    passes), `chunk` the rows of dim 0 the twin's VJP takes at a time (None:
+    all at once; every input then shares that batch dim)."""
 
     run: Callable
     twin: Callable
@@ -201,13 +202,19 @@ class KernelFunction(torch.autograd.Function):
     def forward(ctx, spec: KernelSpec, *inputs):
         ctx.spec = spec
         ctx.save_for_backward(*inputs)
-        return spec.run(*inputs)
+        before = dict(spec.module.sites)
+        out = spec.run(*inputs)
+        # the site this launch counted (None for a `run` that counts none)
+        ctx.site = next((k for k, n in spec.module.sites.items() if n != before.get(k, 0)), None)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         spec = ctx.spec
         spec.module.backward_plain += 1
+        if ctx.site is not None:
+            spec.module.backward_sites[ctx.site] = spec.module.backward_sites.get(ctx.site, 0) + 1
         return (None, *twin_vjp(spec, ctx.saved_tensors, ctx.needs_input_grad[1:], grad))
 
 

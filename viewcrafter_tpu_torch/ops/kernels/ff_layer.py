@@ -41,6 +41,7 @@ from viewcrafter_tpu_torch.ops.kernels import _lib
 launches = 0  # wrapper calls that launched the CUDA kernels
 sites: dict = {}  # (N, C, I, C_out) -> launches at that shape
 backward_plain = 0  # backward passes through the plain twin's VJP
+backward_sites: dict = {}  # launch site -> backward passes of launches there
 
 
 def _layer_norm(x, w, b, eps):

@@ -39,6 +39,7 @@ from viewcrafter_tpu_torch.ops.kernels import _lib
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (B, Sq, Sk, H, D) -> launches at that shape
 backward_plain = 0  # backward passes through the plain twin's VJP
+backward_sites: dict = {}  # launch site -> backward passes of launches there
 PLAIN_LOGIT_BYTES = 1 << 31  # the plain twin's f32 logits per batch chunk
 
 

@@ -59,6 +59,7 @@ from viewcrafter_tpu_torch.ops.kernels import _lib
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (N, S, C, groups, itemsize, with_silu) -> launches at that shape
 backward_plain = 0  # backward passes through the plain twin's VJP
+backward_sites: dict = {}  # launch site -> backward passes of launches there
 MIN_CHUNK_ROWS = 8
 MAX_CHANNELS = 3840
 

@@ -35,6 +35,7 @@ from viewcrafter_tpu_torch.ops.kernels import _lib
 launches = 0  # wrapper calls that launched the CUDA kernel
 sites: dict = {}  # (B, T, S, Cin, Cout) -> launches at that shape
 backward_plain = 0  # backward passes through the plain twin's VJP
+backward_sites: dict = {}  # launch site -> backward passes of launches there
 
 
 def rows_from_conv3d(weight: torch.Tensor) -> torch.Tensor:

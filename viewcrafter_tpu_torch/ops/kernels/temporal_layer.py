@@ -50,6 +50,7 @@ from viewcrafter_tpu_torch.ops.kernels.ff_layer import _layer_norm
 launches = 0  # wrapper calls that launched the CUDA kernels
 sites: dict = {}  # (B, T, S, C, heads, dim_head) -> launches at that shape
 backward_plain = 0  # backward passes through the plain twin's VJP
+backward_sites: dict = {}  # launch site -> backward passes of launches there
 
 
 def fused_temporal_layer_plain(x, ln_w, ln_b, wqkv, wo, bo, *, heads: int,

@@ -189,6 +189,9 @@ class ViewCrafterPipeline:
     "step" per DDIM step and "decode", and "write_video" (the diffusion
     video). Timing hooks; the caller synchronizes.
 
+    nbv_passes: the passes of single_view_nbv, 3 as in the reference; fewer
+    stop the mode early (a shorter run of the same path).
+
     With opts.mesh_devices > 1 the process group must hold that many ranks
     (`parallel.mesh.init_distributed`), and `device` is this rank's device
     (default: one card per local rank)."""
@@ -197,8 +200,9 @@ class ViewCrafterPipeline:
                  model_cfg: Optional[ModelConfig] = None,
                  dust3r_cfg: Optional[Dust3rConfig] = None,
                  on_stage: Optional[Callable[[str], None]] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, nbv_passes: int = 3):
         self.rank, self.world = 0, 1
+        self.nbv_passes = nbv_passes
         if opts.mesh_devices > 1:
             world = pm.world_size()
             if world != opts.mesh_devices:
@@ -771,7 +775,7 @@ class ViewCrafterPipeline:
             "single_view_eval": self.nvs_single_view_eval,
             "single_view_ref_iterative": lambda: self._iterative(len(opts.d_phi)),
             "single_view_1drc_iterative": lambda: self._iterative(len(opts.d_phi)),
-            "single_view_nbv": lambda: self._iterative(3),
+            "single_view_nbv": lambda: self._iterative(self.nbv_passes),
         }
         if opts.mode not in modes:
             raise KeyError(f"invalid mode: {opts.mode}")

@@ -212,6 +212,13 @@ class AdamW:
         return norm
 
 
+def adamw(lr: float) -> AdamW:
+    """optax.adamw(lr) with its defaults: a constant learning rate, no
+    clip, weight decay 1e-4 (what the JAX package's pretraining tests
+    train with)."""
+    return AdamW(constant_schedule(lr), grad_clip=float("inf"), weight_decay=1e-4)
+
+
 def make_optimizer(cfg: TrainLoopConfig) -> AdamW:
     return AdamW(make_lr_schedule(cfg), grad_clip=cfg.grad_clip, weight_decay=cfg.weight_decay)
 

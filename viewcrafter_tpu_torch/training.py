@@ -39,6 +39,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
+import torch.nn as nn
 from torch.profiler import record_function
 
 from viewcrafter_tpu_torch.config import ModelConfig
@@ -56,23 +57,28 @@ class TrainState:
 
 
 @torch.no_grad()
-def sync_model_(model: UNet3D, params: Dict[str, torch.Tensor]) -> None:
+def sync_model_(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
     """Copy the master weights into the module's parameters (in their
     types: the bf16 copy, the float32 norms)."""
     for name, p in model.named_parameters():
         p.copy_(params[name])
 
 
-def create_train_state(model: UNet3D, cfg: ModelConfig,
+def create_train_state(model: nn.Module, cfg: Any,
                        init: Union[torch.Generator, Dict[str, torch.Tensor]], tx) -> TrainState:
-    """Initialise `model` for training and return its state: the weights
-    from `init`, a `torch.Generator` on the model's device (seeded random
-    weights, `init_random_`) or a state dict (e.g. from
-    `convert.from_jax_params`); float32 master copies of them; the module
-    then cast to its dtype (`cast_weights`), its parameters requiring grad;
-    the optimizer state of `tx`."""
-    if model.cfg != cfg.unet:
-        raise ValueError("the model was not built from this configuration's UNet")
+    """Initialise `model` (any of the port's models with a `cfg` and a
+    `dtype`: UNet3D, Dust3rModel, CroCoPretrain) for training and return its
+    state: the weights from `init`, a `torch.Generator` on the model's
+    device (seeded random weights, `init_random_`) or a state dict (e.g.
+    from `convert.from_jax_params`); float32 master copies of them; the
+    module then cast to its dtype (`cast_weights`: the norms, and the
+    modules that compute in float32, stay float32), its parameters requiring
+    grad; the optimizer state of `tx`. `cfg`: the configuration the model
+    was built from, checked against `model.cfg` (a ModelConfig stands for
+    its UNet's)."""
+    want = cfg.unet if isinstance(cfg, ModelConfig) else cfg
+    if model.cfg != want:
+        raise ValueError("the model was not built from this configuration")
     model.float()
     with torch.no_grad():
         if isinstance(init, torch.Generator):
@@ -150,25 +156,36 @@ def make_train_step(model: UNet3D, sched: DiffusionSchedule, tx, mesh=None):
                                       count=None if mesh is None else shape.numel())
             loss.backward()
         with record_function("train_step.optimizer"):
-            grads = {}
-            for name, p in params.items():
-                grads[name] = (torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                               else p.grad.float())
-                p.grad = None
-            loss = loss.detach()
-            if mesh is not None:
-                flat = pm.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]),
-                                         group)
-                offset = 0
-                for g in grads.values():
-                    g.copy_(flat[offset:offset + g.numel()].view(g.shape))
-                    offset += g.numel()
-                del flat
-                loss = pm.all_reduce_sum(loss, group)
-            grad_norm = tx.update_(state.params, grads, state.opt_state)
-            del grads
-            sync_model_(model, state.params)
+            grad_norm = apply_gradients_(model, params, state, tx, group)
+            loss = loss.detach() if group is None else pm.all_reduce_sum(loss.detach(), group)
         state.step += 1
         return state, loss, grad_norm
 
     return step
+
+
+def apply_gradients_(model: nn.Module, params: Dict[str, torch.nn.Parameter], state: TrainState,
+                     tx, group=None) -> torch.Tensor:
+    """The update half of a train step, after `loss.backward()`: the
+    gradients of `params` (the module's, by name) as float32, zeros where a
+    parameter got none, taken off the module; under a process `group`,
+    summed over its ranks (one all_reduce of one flat buffer); then
+    `tx.update_` of the master weights and the optimizer state in place,
+    and the module's copy refreshed from them. Returns the global gradient
+    norm before clipping."""
+    grads = {}
+    for name, p in params.items():
+        grads[name] = (torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                       else p.grad.float())
+        p.grad = None
+    if group is not None:
+        flat = pm.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]), group)
+        offset = 0
+        for g in grads.values():
+            g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+            offset += g.numel()
+        del flat
+    grad_norm = tx.update_(state.params, grads, state.opt_state)
+    del grads
+    sync_model_(model, state.params)
+    return grad_norm

@@ -19,11 +19,13 @@ the Lightning `state_dict` wrapper, deepspeed's `module.` prefix, the legacy
 (extern/dust3r/dust3r/model.py:46-53). The DUSt3R file's constructor string
 (`args`) is never evaluated: the architecture comes from `Dust3rConfig`.
 
-Entry points: `lvdm_from_reference` and `dust3r_from_reference` (strict: a
+Entry points: `lvdm_from_reference`, `dust3r_from_reference` and
+`croco_pretrain_from_reference` (strict: a
 port parameter left unfilled, a checkpoint key a map needs and does not
 find, or a shape that differs raises with the list of keys; checkpoint keys
-no map takes are ignored), and their inverses `lvdm_to_reference` and
-`dust3r_to_reference`, which write port weights under the reference's names.
+no map takes are ignored), and their inverses `lvdm_to_reference`,
+`dust3r_to_reference` and `croco_pretrain_to_reference`, which write port
+weights under the reference's names.
 
 The training loop's own save/resume (`save_params` / `load_params`) is the
 other half: the JAX package writes its loop state with orbax, the port with
@@ -417,6 +419,21 @@ def map_dust3r(w: _Walk, cfg: Dust3rConfig) -> None:
             w.linear(f"downstream_head{s}.proj", f"head{s}.proj")
 
 
+def map_croco_pretrain(w: _Walk, enc_depth: int, dec_depth: int) -> None:
+    """The reference CroCoNet (croco/models/croco.py:21-115) -> the port's
+    `models.croco_pretrain.CroCoPretrain`."""
+    w.conv("patch_embed.proj", "patch_embed")
+    w.norm("enc_norm", "enc_norm")
+    for i in range(enc_depth):
+        _map_croco_enc_block(w, f"enc_blocks.{i}", f"enc_block_{i}")
+    w.linear("decoder_embed", "decoder_embed")
+    w.copy("mask_token", "mask_token")
+    w.norm("dec_norm", "dec_norm")
+    for i in range(dec_depth):
+        _map_croco_dec_block(w, f"dec_blocks.{i}", f"dec_block_{i}")
+    w.linear("prediction_head", "prediction_head")
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -436,6 +453,14 @@ def dust3r_param_shapes(cfg: Dust3rConfig) -> Dict[str, torch.Size]:
 
     with torch.device("meta"):
         model = Dust3rModel(cfg, dtype=torch.float32)
+    return {k: v.shape for k, v in model.state_dict().items()}
+
+
+def croco_pretrain_param_shapes(cfg) -> Dict[str, torch.Size]:
+    from viewcrafter_tpu_torch.models.croco_pretrain import CroCoPretrain
+
+    with torch.device("meta"):
+        model = CroCoPretrain(cfg, dtype=torch.float32)
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
@@ -497,6 +522,17 @@ def dust3r_from_reference(raw: Mapping, dust3r_cfg: Dust3rConfig,
     return {k: _as_tensor(v, k) for k, v in walk.out.items()}
 
 
+def croco_pretrain_from_reference(raw: Mapping, cfg,
+                                  shapes: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """A reference CroCo pretraining checkpoint (its `model` entry, or the
+    state dict itself) -> a state dict for the port's `CroCoPretrain` at
+    `cfg` (a `CroCoPretrainConfig`), strictly as `lvdm_from_reference`."""
+    walk = _Walk(dict(raw.get("model", raw)))
+    map_croco_pretrain(walk, cfg.enc_depth, cfg.dec_depth)
+    _raise("CroCo", _check("croco_pretrain", walk, shapes or croco_pretrain_param_shapes(cfg)))
+    return {k: _as_tensor(v, k) for k, v in walk.out.items()}
+
+
 def _inverse(walk_fn, state: Mapping) -> Dict[str, torch.Tensor]:
     walk = _Walk(state, inverse=True)
     walk_fn(walk)
@@ -522,6 +558,11 @@ def dust3r_to_reference(state: Mapping, dust3r_cfg: Dust3rConfig) -> Dict[str, t
     """A port DUSt3R state dict -> the released checkpoint's names (both
     decoders written)."""
     return _inverse(lambda w: map_dust3r(w, dust3r_cfg), state)
+
+
+def croco_pretrain_to_reference(state: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A port `CroCoPretrain` state dict -> the reference CroCoNet's names."""
+    return _inverse(lambda w: map_croco_pretrain(w, cfg.enc_depth, cfg.dec_depth), state)
 
 
 # ---------------------------------------------------------------------------
