@@ -131,6 +131,34 @@ Phases, each printing JSON lines:
            512/8/16 decoder, 224x224, mask ratio 0.9), 16 synthetic pairs, 4
            steps: s/step, peak memory; no kernel launches, and why (the
            gate's answer at each attention shape)
+  stereoflow_wiring
+           a small CroCo downstream (128 wide, 2 heads of 64, crop 128x256:
+           128 tokens, decoder depth 8, small DPT widths) with a stereo and a
+           flow head, and the monocular encoder, seeded on the card (bf16)
+           against the same weights on the CPU: `tiled_pred` on a 160x320
+           pair (4 tiles) and on a 96x200 pair smaller than the crop (the
+           cubic upscale and the antialiased resize back), the monocular
+           forward; then 3 `make_stereoflow_train_step` steps
+           (laplacian_loss_bounded2) within `compare_runs`' tolerance; fullkv
+           enc_depth + 2 dec_depth times a forward, as many backward passes
+           a step
+  stereo_tiled
+           CroCo-Stereo at the released topology (ViT-L 1024/24/16, decoder
+           768/12/12, DPT 96/192/384/768 -> 256 -> 32, 1 + conf), seeded
+           weights in bf16: a 375x1242 pair (KITTI 2015's size) at the
+           released crop 352x704 (6 tiles, 968 tokens: no fullkv launch, the
+           gate's answer printed) and at 384x768 (upscaled to 384x1272, 3
+           tiles: fullkv 24 at (6,1152,1152,16,64) and 24 at
+           (3,1152,1152,12,64)); CroCo-Flow (2 + conf) on a 436x1024 pair
+           (MPI-Sintel's size) at 352x704 (4 tiles): seconds per pair
+           (median of 3 after a warm-up), peak memory, tiles, launches
+  stereo_train
+           `make_stereoflow_train_step` on the same CroCo-Stereo, 2 seeded
+           pairs at 352x704 with finite random disparities,
+           laplacian_loss_bounded2, the references' AdamW at a constant
+           lr 3e-5, 3 steps: s/step, the last step split into forward, backward and
+           optimizer, peak memory, fullkv launches (none at 968 tokens), the
+           losses
   kernel_grads
            every kernel with a backward (all but `fused_spatial_layer`)
            under grad at every site the training phases launched it with,
@@ -210,7 +238,8 @@ row's also the dust3r_train sites with the launches and backward passes of
 each step there, as counted, and both directions' times; the fullkv row also lists its DUSt3R sites
 under "dust3r_sites", with the launches of each geometry pass that ran them;
 every row lists the sites `sharded_tp`'s ranks launched it at under
-"tp_sites", with both ranks' launches),
+"tp_sites", with both ranks' launches; the fullkv row lists the stereo_tiled
+phase's 1152-token sites under "stereo_sites", with the launches of one pair),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with no
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -266,6 +295,16 @@ DUST3R_STEPS, DUST3R_PAIRS, DUST3R_RES, DUST3R_LR = 4, 4, (384, 512), 1e-4
 CROCO_STEPS, CROCO_PAIRS = 4, 16
 CROCO_LR = 1.5e-4 * CROCO_PAIRS / 256
 PRETRAIN_WARMUP = 100
+# the CroCo downstream phases: the wiring's train steps; the tiled phase's
+# timed calls a case; the full-width train phase's steps, pairs and constant
+# lr (CroCo-Stereo's fine-tuning lr); the data sets' pair sizes (KITTI 2015,
+# MPI-Sintel) and the two tile crops (the released one, and the one whose
+# 1152 tokens pass fullkv's gate)
+STEREO_WIRING_STEPS = 3
+STEREO_TILED_REPS = 3
+STEREO_TRAIN_STEPS, STEREO_PAIRS, STEREO_LR = 3, 2, 3e-5
+KITTI_SIZE, SINTEL_SIZE = (375, 1242), (436, 1024)
+RELEASED_CROP, GATED_CROP = (352, 704), (384, 768)
 # a kernel no training phase launches gets its backward checked here: the
 # long clip's temporal attention at B = 1 (the 512 model at 40 frames), and
 # at the wiring config's width
@@ -947,6 +986,19 @@ def dust3r_wiring_config():
                         dpt_hidden_dims=(16, 16, 32, 64))
 
 
+def against_cpu(got, o32, o16) -> dict:
+    """A card output against the CPU's float32 run, relative to its largest
+    value, held to twice the CPU bf16 run's own distance plus 1e-2."""
+    import torch
+
+    got = got.float().cpu()
+    scale = max(o32.abs().max().item(), 1e-12)
+    err, yard = (got - o32).abs().max().item() / scale, (o16 - o32).abs().max().item() / scale
+    finite = bool(torch.isfinite(got).all())
+    return {"rel_err_vs_cpu_f32": err, "cpu_bf16_vs_f32": yard, "tol": 2 * yard + 1e-2,
+            "finite": finite, "ok": err <= 2 * yard + 1e-2 and finite}
+
+
 def run_geometry_wiring(gen) -> tuple:
     """The small DUSt3R on the card against the same weights on the CPU
     (float32 and bf16; the yardstick for the tolerance is the CPU bf16 run's
@@ -985,13 +1037,8 @@ def run_geometry_wiring(gen) -> tuple:
            "launches": counts, "outputs": {}}
     ok = True
     for key in ("pts3d1", "conf1", "pts3d2_in_view1", "conf2"):
-        got, o32, o16 = out[key].float().cpu(), cpu[0][key], cpu[1][key]
-        scale = o32.abs().max().item()
-        err, yard = (got - o32).abs().max().item() / scale, (o16 - o32).abs().max().item() / scale
-        tol = 2 * yard + 1e-2
-        res["outputs"][key] = {"rel_err_vs_cpu_f32": err, "cpu_bf16_vs_f32": yard, "tol": tol,
-                               "finite": bool(torch.isfinite(got).all())}
-        ok &= err <= tol and res["outputs"][key]["finite"]
+        res["outputs"][key] = against_cpu(out[key], cpu[0][key], cpu[1][key])
+        ok &= res["outputs"][key]["ok"]
     # the aligner on the card and on the CPU from the card's pointmaps
     host = {k: v.float().cpu().numpy() for k, v in out.items()}
     graph = SceneGraph(edges=np.array([[1, 0], [0, 1]]), pred_i=host["pts3d1"],
@@ -2604,6 +2651,343 @@ def run_croco_pretrain(smi: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# CroCo downstream stereo and flow
+# --------------------------------------------------------------------------
+
+
+def stereoflow_wiring_configs() -> dict:
+    """A small CroCo downstream whose every attention passes fullkv's gate:
+    128 wide with 2 heads of 64, the crop 128x256 (128 tokens), decoder
+    depth 8 (one of the depths `default_hooks` takes), small DPT widths; a
+    stereo head (1 + conf), a flow head (2 + conf) and the monocular
+    encoder (4 blocks, its hooks 0..3)."""
+    from viewcrafter_tpu_torch.models.croco_downstream import CroCoDownstreamConfig
+
+    small = dict(img_size=(128, 256), enc_embed_dim=128, enc_depth=2, enc_num_heads=2,
+                 dec_embed_dim=128, dec_depth=8, dec_num_heads=2,
+                 dpt_layer_dims=(16, 16, 32, 64), dpt_feature_dim=32, dpt_last_dim=16)
+    return {"stereo": CroCoDownstreamConfig(**small, num_channels=2),
+            "flow": CroCoDownstreamConfig(**small, num_channels=3),
+            "mono": CroCoDownstreamConfig(**dict(small, enc_depth=4), num_channels=2)}
+
+
+def downstream_model(kind: str, cfg, device, dtype):
+    """The binocular model ("stereo", "flow") or the monocular encoder
+    ("mono") of `cfg` on `device`, its weights in `dtype`."""
+    import torch
+
+    from viewcrafter_tpu_torch.models.croco_downstream import (
+        CroCoDownstreamBinocular, CroCoDownstreamMonocularEncoder)
+
+    cls = CroCoDownstreamMonocularEncoder if kind == "mono" else CroCoDownstreamBinocular
+    with torch.device(device):
+        return cls(cfg, dtype=dtype)
+
+
+def fullkv_per_forward(kind: str, cfg) -> int:
+    """fullkv launches of one forward: one per encoder block (both views in
+    one batch), and a self and a cross attention per decoder block."""
+    return cfg.enc_depth + (0 if kind == "mono" else 2 * cfg.dec_depth)
+
+
+def stereo_batch(b: int, h: int, w: int, seed: int, invalid: float = 0.0) -> tuple:
+    """A seeded numpy training batch: two ImageNet-normalized images
+    (B, H, W, 3) and a disparity (B, H, W, 1) in [0, 64), a share `invalid`
+    of it +inf."""
+    import numpy as np
+
+    from viewcrafter_tpu_torch.stereoflow.data import to_model_input
+
+    rng = np.random.default_rng(seed)
+    img1, img2 = (to_model_input(rng.integers(0, 256, (b, h, w, 3))) for _ in range(2))
+    gt = rng.uniform(0, 64, (b, h, w, 1)).astype(np.float32)
+    gt[rng.uniform(size=(b, h, w)) < invalid] = np.inf
+    return img1, img2, gt
+
+
+def stereoflow_steps(cfg, weights: dict, batches: list, device, dtype) -> dict:
+    """`make_stereoflow_train_step` (laplacian_loss_bounded2, with the
+    confidence) on the stereo model of `cfg` from `weights`, one step a batch,
+    with `train_loop.adamw(PRETRAIN_LR)`, on `device` in `dtype`: per step the
+    loss and the gradient norm, and the final master weights (CPU float32)."""
+    import torch
+
+    from viewcrafter_tpu_torch._dryrun import PRETRAIN_LR
+    from viewcrafter_tpu_torch.stereoflow.criterion import laplacian_loss_bounded2
+    from viewcrafter_tpu_torch.stereoflow.engine import make_stereoflow_train_step
+    from viewcrafter_tpu_torch.train_loop import adamw
+    from viewcrafter_tpu_torch.training import create_train_state
+
+    model = downstream_model("stereo", cfg, device, dtype)
+    tx = adamw(PRETRAIN_LR)
+    state = create_train_state(model, cfg, weights, tx)
+    step = make_stereoflow_train_step(model, tx, laplacian_loss_bounded2, with_conf=True)
+    losses, norms = [], []
+    for batch in batches:
+        _, loss, grad_norm = step(state, *(torch.from_numpy(x) for x in batch))
+        losses.append(float(loss))
+        norms.append(float(grad_norm))
+    return {"loss": losses, "grad_norm": norms,
+            "params": {k: v.detach().float().cpu() for k, v in state.params.items()}}
+
+
+def run_stereoflow_wiring(gen, steps: int = STEREO_WIRING_STEPS) -> tuple:
+    """The small downstream models (`stereoflow_wiring_configs`), seeded on
+    the card (bf16), against the same weights on the CPU in float32 and in
+    bf16 (the yardstick): `tiled_pred` of the stereo and flow models on a
+    160x320 pair (4 tiles of 128x256) and on a 96x200 pair smaller than the
+    crop (the cubic upscale to 128x267, 2 tiles, and the antialiased resize
+    back), the monocular encoder on a 128x256 pair; then `steps` steps of
+    `make_stereoflow_train_step` on the stereo model (laplacian_loss_bounded2)
+    on the card and on the CPU from the same weights and batches, within
+    `compare_runs`' tolerance. fullkv must launch enc_depth + 2 dec_depth
+    times a forward (the encoder's depth alone for the monocular model),
+    and run as many backward passes a step, and no other kernel launch.
+    Returns (result, every launch site, the training's launch sites)."""
+    import torch
+
+    from viewcrafter_tpu_torch._dryrun import PRETRAIN_LR
+    from viewcrafter_tpu_torch.models.layers import init_random_
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.stereoflow.engine import tiled_pred
+
+    cfgs = stereoflow_wiring_configs()
+    crop = cfgs["stereo"].img_size
+    res, sites, ok = {"phase": "stereoflow_wiring", "crop": list(crop), "outputs": {}}, [], True
+    for i, (kind, cfg) in enumerate(cfgs.items()):
+        card = downstream_model(kind, cfg, "cuda", torch.bfloat16).eval()
+        init_random_(card, torch.Generator(device="cuda").manual_seed(TRAIN_SEED + i))
+        state = {k: v.float().cpu() for k, v in card.state_dict().items()}
+        cpu = [downstream_model(kind, cfg, "cpu", dt).eval() for dt in (torch.float32,
+                                                                         torch.bfloat16)]
+        for m in cpu:
+            m.load_state_dict(state)
+        if kind == "mono":
+            cases = {"forward_128x256": (128, 256)}
+        else:
+            cases = {"tiled_160x320": (160, 320), "upscaled_96x200": (96, 200)}
+        for case, (h, w) in cases.items():
+            imgs = [torch.rand((1, h, w, 3), generator=gen, device="cuda") * 2 - 1
+                    for _ in range(1 if kind == "mono" else 2)]
+
+            def run(model, xs):
+                if kind == "mono":
+                    return {"pred": model(*xs)}
+                pred, _, conf = tiled_pred(model, *xs, crop=crop, overlap=0.5,
+                                           conf_mode="conf_expsigmoid_10_5", with_conf=True)
+                return {"pred": pred, "conf": conf}
+
+            kernels.reset_launches()
+            with torch.no_grad():
+                out = run(card, imgs)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                sites.append(kernels.launch_sites())
+                refs = [run(m, [x.cpu() for x in imgs]) for m in cpu]
+            line = {k: against_cpu(out[k], refs[0][k], refs[1][k]) for k in out}
+            line.update(shape=list(out["pred"].shape), fullkv_launches=counts["fullkv_attention"],
+                        fullkv_expected=fullkv_per_forward(kind, cfg),
+                        other_launches=sum(counts.values()) - counts["fullkv_attention"])
+            ok &= (all(v["ok"] for k, v in line.items() if k in out)
+                   and line["fullkv_launches"] == line["fullkv_expected"]
+                   and line["other_launches"] == 0)
+            res["outputs"][f"{kind}_{case}"] = line
+        del card, cpu
+    # the train steps: the card against the CPU from the same weights
+    cfg = cfgs["stereo"]
+    seeded = init_random_(downstream_model("stereo", cfg, "cpu", torch.float32),
+                          torch.Generator().manual_seed(TRAIN_SEED))
+    weights = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    batches = [stereo_batch(2, *crop, seed=TRAIN_SEED + s, invalid=0.1) for s in range(steps)]
+    runs = {}
+    for name, device, dtype in (("card", "cuda", torch.bfloat16), ("cpu_f32", "cpu", torch.float32),
+                                ("cpu_bf16", "cpu", torch.bfloat16)):
+        kernels.reset_launches()
+        runs[name] = with_delta(stereoflow_steps(cfg, weights, batches, device, dtype), weights)
+        if name == "card":
+            counts, back = kernels.launch_counts(), kernels.backward_plain_counts()
+            train_sites = kernels.launch_sites()
+    cmp = compare_runs(runs["card"], runs["cpu_f32"], (runs["cpu_bf16"], runs["cpu_f32"]),
+                       PRETRAIN_LR)
+    want = steps * fullkv_per_forward("stereo", cfg)
+    res["train"] = {"steps": steps, "lr": PRETRAIN_LR, "loss_fn": "laplacian_loss_bounded2",
+                    **{f"{k}_loss": runs[k]["loss"] for k in runs},
+                    **{f"{k}_grad_norm": runs[k]["grad_norm"] for k in runs}, **cmp,
+                    "fullkv_launches": counts["fullkv_attention"],
+                    "fullkv_backward_plain": back["fullkv_attention"], "fullkv_expected": want,
+                    "other_launches": sum(counts.values()) - counts["fullkv_attention"]}
+    ok &= (cmp["ok"] and counts["fullkv_attention"] == back["fullkv_attention"] == want
+           and res["train"]["other_launches"] == 0)
+    emit(res)
+    if not ok:
+        raise AssertionError(f"stereoflow_wiring: {res}")
+    return res, merge_sites(*sites, train_sites), train_sites
+
+
+def run_stereo_tiled(smi: str) -> tuple:
+    """Tiled inference at the released width: CroCo-Stereo (1 + conf) with
+    seeded weights in bf16 on a seeded numpy pair of KITTI 2015's size
+    (375x1242) at the released crop 352x704 (6 tiles of 968 tokens in one
+    forward: fullkv's gate, the JAX package's, takes none, so no launch) and
+    at 384x768 (the pair upscaled to 384x1272, 3 tiles of 1152 tokens: fullkv
+    24 times at (6, 1152, 1152, 16, 64) and 24 at (3, 1152, 1152, 12, 64));
+    CroCo-Flow (2 + conf) on a pair of MPI-Sintel's size (436x1024) at
+    352x704 (4 tiles). Overlap 0.5, conf_expsigmoid_10_5. Per case: seconds
+    per pair (median of STEREO_TILED_REPS after a warm-up call, whose
+    launches are counted), peak memory, tiles, launches and sites against
+    the expected ones, finiteness. Returns (result, launch sites)."""
+    import numpy as np
+    import torch
+
+    from viewcrafter_tpu_torch.models.croco_downstream import CroCoDownstreamConfig
+    from viewcrafter_tpu_torch.models.layers import init_random_
+    from viewcrafter_tpu_torch.ops import kernels
+    from viewcrafter_tpu_torch.ops.kernels.fullkv_attention import supports_fullkv
+    from viewcrafter_tpu_torch.stereoflow.data import to_model_input
+    from viewcrafter_tpu_torch.stereoflow.engine import tiled_pred
+
+    enc, dec = (6, 1152, 1152, 16, 64), (3, 1152, 1152, 12, 64)
+    cases = (("stereo_kitti_352x704", 2, KITTI_SIZE, RELEASED_CROP, 6, {}),
+             ("stereo_kitti_384x768", 2, KITTI_SIZE, GATED_CROP, 3, {enc: 24, dec: 24}),
+             ("flow_sintel_352x704", 3, SINTEL_SIZE, RELEASED_CROP, 4, {}))
+    res, sites, ok, models = {"phase": "stereo_tiled", "cases": {}, "nvidia_smi": smi}, [], True, {}
+    for case, nch, size, crop, tiles_want, want in cases:
+        built = nch not in models
+        if built:
+            models.clear()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            # the released topology (CroCoDownstreamConfig's defaults)
+            models[nch] = downstream_model("stereo", CroCoDownstreamConfig(num_channels=nch),
+                                           "cuda", torch.bfloat16).eval()
+            init_random_(models[nch], torch.Generator(device="cuda").manual_seed(TRAIN_SEED + nch))
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+        model = models[nch]
+        rng = np.random.default_rng(TRAIN_SEED)
+        pair = [torch.from_numpy(to_model_input(rng.integers(0, 256, (1, *size, 3)))).cuda()
+                for _ in range(2)]
+        tokens = (crop[0] // 16) * (crop[1] // 16)
+        batches = []  # the batch of each forward: the tiles, one pair each
+
+        def call():
+            with torch.no_grad():
+                return tiled_pred(lambda a, b: batches.append(a.shape[0]) or model(a, b), *pair,
+                                  crop=crop, overlap=0.5, conf_mode="conf_expsigmoid_10_5",
+                                  with_conf=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        pred, _, conf = call()
+        torch.cuda.synchronize()
+        counts, launched = kernels.launch_counts(), kernels.launch_sites()
+        tiles, forwards = sum(batches), len(batches)
+        sites.append(launched)
+        times = []
+        for _ in range(STEREO_TILED_REPS):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        line = {"size": list(size), "crop": list(crop), "tiled_size": list(conf.shape[1:]),
+                "tiles": tiles, "tiles_expected": tiles_want, "forwards": forwards,
+                "tokens_per_tile": tokens,
+                "fullkv_gate": supports_fullkv((2 * tiles, tokens, 16, 64),
+                                               (2 * tiles, tokens, 16, 64)),
+                "s_per_pair": statistics.median(times),
+                "s_per_pair_runs": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "pred_shape": list(pred.shape), "conf_shape": list(conf.shape),
+                "finite": bool(torch.isfinite(pred).all() and torch.isfinite(conf).all()),
+                "fullkv_launches": counts["fullkv_attention"],
+                "fullkv_expected": sum(want.values()),
+                "fullkv_sites": [[list(k), n] for k, n in launched["fullkv_attention"].items()],
+                "fullkv_sites_expected": [[list(k), n] for k, n in want.items()],
+                "other_launches": sum(counts.values()) - counts["fullkv_attention"]}
+        if built:  # the case after it reuses this model
+            line["model_setup_s"] = setup_s
+        ok &= (tiles == tiles_want and forwards == 1 and line["finite"] and launched["fullkv_attention"] == want
+               and line["other_launches"] == 0 and line["fullkv_gate"] == bool(want)
+               and line["pred_shape"] == [1, *size, nch - 1])
+        res["cases"][case] = line
+        del pair, pred, conf
+    models.clear()
+    torch.cuda.empty_cache()
+    res["params"] = sum(p.numel() for p in downstream_model(
+        "stereo", CroCoDownstreamConfig(), "meta", torch.bfloat16).parameters())
+    res["cuts"] = ["seeded random weights", "seeded numpy pairs of the data sets' sizes in place "
+                   "of KITTI 2015 and MPI-Sintel", f"{STEREO_TILED_REPS} timed calls a case"]
+    emit(res)
+    if not ok:
+        raise AssertionError(f"stereo_tiled: {res}")
+    return res, merge_sites(*sites)
+
+
+def run_stereo_train(smi: str) -> dict:
+    """CroCo-Stereo training at the released width: `make_stereoflow_train_step`
+    on the default `CroCoDownstreamConfig` (1 + conf), seeded weights in bf16 with float32
+    master weights, laplacian_loss_bounded2, the references' AdamW (betas
+    0.9 / 0.95, weight decay 0.05, no clip) at CroCo-Stereo's lr STEREO_LR,
+    held constant (the seeded model's losses stay finite without
+    `reference_adamw`'s warmup), STEREO_PAIRS seeded pairs at the released crop 352x704 with
+    finite random disparities, STEREO_TRAIN_STEPS steps, the last one
+    profiled into forward, backward and optimizer. No kernel launches: 968
+    tokens fail fullkv's gate."""
+    import math
+
+    import torch
+
+    from viewcrafter_tpu_torch.models.croco_downstream import CroCoDownstreamConfig
+    from viewcrafter_tpu_torch.ops.kernels.fullkv_attention import supports_fullkv
+    from viewcrafter_tpu_torch.stereoflow.criterion import laplacian_loss_bounded2
+    from viewcrafter_tpu_torch.stereoflow.engine import make_stereoflow_train_step
+    from viewcrafter_tpu_torch.train_loop import AdamW, constant_schedule
+    from viewcrafter_tpu_torch.training import create_train_state
+
+    cfg = CroCoDownstreamConfig()  # CroCo-Stereo's released topology, 1 + conf
+    batch = [torch.from_numpy(x).cuda() for x in stereo_batch(STEREO_PAIRS, *RELEASED_CROP,
+                                                                seed=TRAIN_SEED)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = downstream_model("stereo", cfg, "cuda", torch.bfloat16)
+    tx = AdamW(constant_schedule(STEREO_LR), grad_clip=float("inf"), weight_decay=0.05, b2=0.95)
+    state = create_train_state(model, cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                               tx)
+    step = make_stereoflow_train_step(model, tx, laplacian_loss_bounded2, with_conf=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run = pretrain_steps_on_card(lambda: step(state, *batch), state.params, STEREO_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = run["records"]
+    tokens = (RELEASED_CROP[0] // 16) * (RELEASED_CROP[1] // 16)
+    res = {"phase": "stereo_train", "params": sum(p.numel() for p in model.parameters()),
+           "pairs": STEREO_PAIRS, "crop": list(RELEASED_CROP), "tokens": tokens,
+           "loss_fn": "laplacian_loss_bounded2",
+           "optimizer": {"lr": STEREO_LR, "schedule": "constant", "betas": [0.9, 0.95],
+                         "weight_decay": 0.05},
+           "lr": [float(tx.lr_fn(i)) for i in range(STEREO_TRAIN_STEPS)],
+           "steps": STEREO_TRAIN_STEPS, "setup_s": setup_s, "step_s": [r["s"] for r in recs],
+           "s_per_step": statistics.median([r["s"] for r in recs[1:]]), "peak_mem_gib": peak,
+           "loss": [r["loss"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs],
+           "weights_changed_at_step_2": run["changed_at_step_2"],
+           "fullkv_launches_per_step": [r["launches"]["fullkv_attention"] for r in recs],
+           "kernel_launches_per_step": [sum(r["launches"].values()) for r in recs],
+           "fullkv_gate": supports_fullkv((2 * STEREO_PAIRS, tokens, 16, 64),
+                                          (2 * STEREO_PAIRS, tokens, 16, 64)),
+           "profiled_step": STEREO_TRAIN_STEPS, "split": run["split"], "profile": run["profile"],
+           "cuts": [f"{STEREO_TRAIN_STEPS} steps", f"batch {STEREO_PAIRS} pairs",
+                    "seeded random weights and pairs in place of the references' data mix"],
+           "nvidia_smi": smi}
+    emit(res)
+    del model, state, step, batch, run
+    torch.cuda.empty_cache()
+    if (not all(math.isfinite(x) for x in res["loss"]) or not res["weights_changed_at_step_2"]
+            or any(res["kernel_launches_per_step"]) or res["fullkv_gate"]):
+        raise AssertionError(f"stereo_train: {res}")
+    return res
+
+
 def wgmma_kernel_resources(log: str) -> list:
     """ptxas's registers and spill bytes for each instance of the kernels in
     WGMMA_FUNCTIONS, read from the `-Xptxas -v` build log."""
@@ -2798,8 +3182,15 @@ def main() -> int:
     _, pretrain_sites = run_pretrain_wiring()
     dust3r_res, dust3r_train_sites, dust3r_site_steps = run_dust3r_train(smi)
     run_croco_pretrain(smi)
+    # CroCo downstream stereo and flow: the small models card against CPU
+    # (tiled inference and train steps, fullkv at every attention), tiled
+    # inference and training at the released width
+    _, stereo_wiring_sites, stereo_wiring_train_sites = run_stereoflow_wiring(gen)
+    stereo_res, stereo_sites = run_stereo_tiled(smi)
+    run_stereo_train(smi)
     grad_worst, grad_checks = run_kernel_grads(
-        gen, [train_sites, train_wiring_sites, pretrain_sites, dust3r_train_sites])
+        gen, [train_sites, train_wiring_sites, pretrain_sites, dust3r_train_sites,
+              stereo_wiring_train_sites])
     _, train_sharded_sites = run_train_sharded_wiring()
 
     # multi-device sampling: ranks spawned from here, each phase after the
@@ -2826,7 +3217,7 @@ def main() -> int:
     # path's launch count a kernel's row reports.
     sites = merge_sites(*wiring_sites, geo_wiring_sites, *mode_sites, checkpoint_sites,
                         train_wiring_sites, train_sites, *train_sharded_sites, pretrain_sites,
-                        dust3r_train_sites,
+                        dust3r_train_sites, stereo_wiring_sites, stereo_sites,
                         *sharded_sites, *(s["all"] for s in (main_sites, routes_sites, *pab_sites,
                                                              long_sites, op_sites)))
     sites["group_norm_fused"][(2, 9216, 320, 32, 4, 1)] = 0
@@ -2892,6 +3283,16 @@ def main() -> int:
     fullkv_row["backward"]["dust3r_train_backward_plain_per_step"] = \
         dust3r_res["fullkv_backward_plain_per_step"]
     fullkv_row["backward"]["dust3r_train_s_per_step"] = dust3r_res["s_per_step"]
+    # fullkv at the released CroCo-Stereo's 1152-token sites (crop 384x768),
+    # with the launches of one tiled pair there
+    fullkv_row["stereo_sites"] = [
+        {"site": r["site"], "launches_per_pair": {
+            case: n for case, c in stereo_res["cases"].items()
+            for k, n in c["fullkv_sites"] if tuple(k) == tuple(r["site"])},
+         **{k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                              "mufu_bound_ms", "max_abs_err", "tol")}}
+        for r in results["fullkv_attention"]
+        if not r["variant"] and tuple(r["site"]) in stereo_sites.get("fullkv_attention", {})]
     # the main path's kernels at the local heads and widths of `sharded_tp`'s
     # ranks, with the launches of both ranks together
     tp_launches = merge_sites(*tp_rank_sites)

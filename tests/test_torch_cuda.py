@@ -101,7 +101,8 @@ def test_ff_layer_kernel(gen, n, c):
                                          (2, 130, 333, 2, 128), (1, 576, 576, 4, 64),
                                          (2, 200, 333, 2, 64), (1, 256, 130, 2, 128),
                                          (50, 144, 256, 20, 64), (2, 576, 576, 16, 64),
-                                         (2, 576, 576, 12, 64)])
+                                         (2, 576, 576, 12, 64), (6, 1152, 1152, 16, 64),
+                                         (3, 1152, 1152, 12, 64)])
 def test_fullkv_attention_kernel(gen, b, sq, sk, h, d):
     q, k, v = _randn(gen, b, sq, h, d), _randn(gen, b, sk, h, d), _randn(gen, b, sk, h, d)
     _assert_close(fullkv_attention.fullkv_attention(q, k, v),
@@ -305,6 +306,52 @@ def test_small_dust3r_train_steps_match_cpu(gen):
     assert counts == (2 * pretrain_fullkv_per_step("dust3r", cfg),) * 2
     res = compare_runs(runs["card"], runs["f32"], (runs["bf16"], runs["f32"]), _dryrun.PRETRAIN_LR)
     assert res["ok"], res
+
+
+def test_stereoflow_wiring_matches_cpu(gen):
+    """The small CroCo downstream models of chip_smoke.py's stereoflow_wiring
+    phase on the card against the CPU: tiled inference (4 tiles, and the
+    upscale path), the monocular forward and 2 train steps, fullkv at every
+    attention (the phase raises otherwise)."""
+    from chip_smoke import run_stereoflow_wiring
+
+    res, sites, train_sites = run_stereoflow_wiring(gen, steps=2)
+    assert res["train"]["ok"] and res["train"]["fullkv_launches"] == 2 * 18
+    assert set(train_sites["fullkv_attention"]) == {(4, 128, 128, 2, 64), (2, 128, 128, 2, 64)}
+
+
+def test_stereoflow_eval_needs_a_card_unless_asked(monkeypatch, tmp_path):
+    """The eval CLI raises without a card unless `--device cpu` is given;
+    with it the model loads on the CPU and the run reaches the (absent)
+    data set."""
+    import json
+
+    from viewcrafter_tpu_torch.models.croco_downstream import (
+        CroCoDownstreamBinocular, CroCoDownstreamConfig)
+    from viewcrafter_tpu_torch.stereoflow import eval as sfeval
+    from viewcrafter_tpu_torch.utils.checkpoint import save_params
+
+    croco = dict(enc_embed_dim=32, enc_depth=2, enc_num_heads=2, dec_embed_dim=32, dec_depth=8,
+                 dec_num_heads=2, dpt_layer_dims=[8, 16, 24, 32], dpt_feature_dim=16,
+                 dpt_last_dim=8)
+    model = CroCoDownstreamBinocular(CroCoDownstreamConfig(
+        num_channels=2, **{k: tuple(v) if isinstance(v, list) else v for k, v in croco.items()}))
+    path = str(tmp_path / "w.pt")
+    save_params(path, {k: v.float() for k, v in model.state_dict().items()})
+    with open(path + ".json", "w") as fid:
+        json.dump({"task": "stereo", "croco": croco}, fid)
+    monkeypatch.setattr("viewcrafter_tpu_torch.stereoflow.data.STEREOFLOW_ROOT",
+                        str(tmp_path / "absent"))
+    argv = ["--model", path, "--dataset", "Kitti15('test')"]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sfeval.main(sfeval.get_args_parser().parse_args(argv))
+        with pytest.raises(FileNotFoundError, match="dataset root"):
+            sfeval.main(sfeval.get_args_parser().parse_args(argv + ["--device", "cpu"]))
+    if torch.cuda.is_available():  # on the card the default device is the card
+        with pytest.raises(FileNotFoundError, match="dataset root"):
+            sfeval.main(sfeval.get_args_parser().parse_args(argv))
 
 
 def test_spatial_layer_raises_under_grad(gen):

@@ -23,6 +23,7 @@ import viewcrafter_tpu_torch.data.synth_multiview
 import viewcrafter_tpu_torch.data.video_reader
 import viewcrafter_tpu_torch.geometry.trajectory
 import viewcrafter_tpu_torch.geometry.transforms
+import viewcrafter_tpu_torch.models.croco_downstream
 import viewcrafter_tpu_torch.models.croco_pretrain
 import viewcrafter_tpu_torch.models.dust3r
 import viewcrafter_tpu_torch.models.dust3r_losses
@@ -35,6 +36,12 @@ import viewcrafter_tpu_torch.parallel
 import viewcrafter_tpu_torch.parallel.mesh
 import viewcrafter_tpu_torch.pipeline
 import viewcrafter_tpu_torch.pretrain
+import viewcrafter_tpu_torch.stereoflow
+import viewcrafter_tpu_torch.stereoflow.augmentor
+import viewcrafter_tpu_torch.stereoflow.criterion
+import viewcrafter_tpu_torch.stereoflow.data
+import viewcrafter_tpu_torch.stereoflow.engine
+import viewcrafter_tpu_torch.stereoflow.eval
 import viewcrafter_tpu_torch.train_loop
 import viewcrafter_tpu_torch.training
 import viewcrafter_tpu_torch.utils.checkpoint
@@ -46,10 +53,10 @@ import viewcrafter_tpu_torch.utils.viz
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "viewcrafter_tpu"))
 print(",".join(bad))
-# the card's machine has no PIL, imageio or matplotlib: nothing imported
-# with the port may need them
+# the card's machine has no PIL, imageio, matplotlib, cv2 or h5py: nothing
+# imported with the port may need them
 print(",".join(sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("PIL", "imageio", "matplotlib"))))
+                      if m.split(".")[0] in ("PIL", "imageio", "matplotlib", "cv2", "h5py"))))
 """
 
 

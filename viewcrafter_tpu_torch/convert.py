@@ -98,3 +98,11 @@ def croco_pretrain_from_jax_params(params) -> dict:
     the port's `models.croco_pretrain.CroCoPretrain` (the mask token keeps
     its name and shape)."""
     return convert_tree(params)
+
+
+def croco_downstream_from_jax_params(params) -> dict:
+    """The JAX package's `CroCoDownstreamBinocular` or
+    `CroCoDownstreamMonocularEncoder` parameter tree -> a state dict for the
+    port's model of the same name (`models.croco_downstream`); the DPT
+    head's ConvTranspose kernels flipped as in `dust3r_from_jax_params`."""
+    return convert_tree(params, conv_transpose=DUST3R_CONV_TRANSPOSE)

@@ -19,13 +19,15 @@ the Lightning `state_dict` wrapper, deepspeed's `module.` prefix, the legacy
 (extern/dust3r/dust3r/model.py:46-53). The DUSt3R file's constructor string
 (`args`) is never evaluated: the architecture comes from `Dust3rConfig`.
 
-Entry points: `lvdm_from_reference`, `dust3r_from_reference` and
-`croco_pretrain_from_reference` (strict: a
+Entry points: `lvdm_from_reference`, `dust3r_from_reference`,
+`croco_pretrain_from_reference` and `croco_downstream_from_reference`
+(strict: a
 port parameter left unfilled, a checkpoint key a map needs and does not
 find, or a shape that differs raises with the list of keys; checkpoint keys
 no map takes are ignored), and their inverses `lvdm_to_reference`,
-`dust3r_to_reference` and `croco_pretrain_to_reference`, which write port
-weights under the reference's names.
+`dust3r_to_reference`, `croco_pretrain_to_reference` and
+`croco_downstream_to_reference`, which write port weights under the
+reference's names.
 
 The training loop's own save/resume (`save_params` / `load_params`) is the
 other half: the JAX package writes its loop state with orbax, the port with
@@ -434,6 +436,24 @@ def map_croco_pretrain(w: _Walk, enc_depth: int, dec_depth: int) -> None:
     w.linear("prediction_head", "prediction_head")
 
 
+def map_croco_downstream(w: _Walk, cfg, monocular: bool = False) -> None:
+    """The reference CroCoDownstreamBinocular / CroCoDownstreamMonocularEncoder
+    (croco/models/croco_downstream.py:23-122, its head's `head.dpt.*`
+    adapter from head_downstream.py) -> the port's
+    `models.croco_downstream` model of `cfg`; the monocular model has no
+    decoder."""
+    w.conv("patch_embed.proj", "patch_embed")
+    w.norm("enc_norm", "enc_norm")
+    for i in range(cfg.enc_depth):
+        _map_croco_enc_block(w, f"enc_blocks.{i}", f"enc_block_{i}")
+    if not monocular:
+        w.linear("decoder_embed", "decoder_embed")
+        w.norm("dec_norm", "dec_norm")
+        for i in range(cfg.dec_depth):
+            _map_croco_dec_block(w, f"dec_blocks.{i}", f"dec_block_{i}")
+    _map_dpt_head(w, "head", "head")
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -461,6 +481,16 @@ def croco_pretrain_param_shapes(cfg) -> Dict[str, torch.Size]:
 
     with torch.device("meta"):
         model = CroCoPretrain(cfg, dtype=torch.float32)
+    return {k: v.shape for k, v in model.state_dict().items()}
+
+
+def croco_downstream_param_shapes(cfg, monocular: bool = False) -> Dict[str, torch.Size]:
+    from viewcrafter_tpu_torch.models.croco_downstream import (
+        CroCoDownstreamBinocular, CroCoDownstreamMonocularEncoder)
+
+    cls = CroCoDownstreamMonocularEncoder if monocular else CroCoDownstreamBinocular
+    with torch.device("meta"):
+        model = cls(cfg, dtype=torch.float32)
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
@@ -533,6 +563,20 @@ def croco_pretrain_from_reference(raw: Mapping, cfg,
     return {k: _as_tensor(v, k) for k, v in walk.out.items()}
 
 
+def croco_downstream_from_reference(raw: Mapping, cfg,
+                                    monocular: bool = False) -> Dict[str, torch.Tensor]:
+    """A released CroCo-Stereo / CroCo-Flow checkpoint (its `model` entry, or
+    the state dict itself) -> a state dict for the port's
+    `CroCoDownstreamBinocular` (or, `monocular`, the encoder-only model) at
+    `cfg` (a `CroCoDownstreamConfig`), strictly as `lvdm_from_reference`.
+    The reference's `args` are not read: the topology is `cfg`'s."""
+    walk = _Walk(dict(raw.get("model", raw)))
+    map_croco_downstream(walk, cfg, monocular)
+    _raise("CroCo downstream", _check("croco_downstream", walk,
+                                      croco_downstream_param_shapes(cfg, monocular)))
+    return {k: _as_tensor(v, k) for k, v in walk.out.items()}
+
+
 def _inverse(walk_fn, state: Mapping) -> Dict[str, torch.Tensor]:
     walk = _Walk(state, inverse=True)
     walk_fn(walk)
@@ -563,6 +607,12 @@ def dust3r_to_reference(state: Mapping, dust3r_cfg: Dust3rConfig) -> Dict[str, t
 def croco_pretrain_to_reference(state: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """A port `CroCoPretrain` state dict -> the reference CroCoNet's names."""
     return _inverse(lambda w: map_croco_pretrain(w, cfg.enc_depth, cfg.dec_depth), state)
+
+
+def croco_downstream_to_reference(state: Mapping, cfg,
+                                  monocular: bool = False) -> Dict[str, torch.Tensor]:
+    """A port downstream state dict -> the reference model's names."""
+    return _inverse(lambda w: map_croco_downstream(w, cfg, monocular), state)
 
 
 # ---------------------------------------------------------------------------
