@@ -39,7 +39,10 @@ Phases, each printing JSON lines:
            2 steps: both temporal attentions of every block run
            `temporal_attention_fused`
   op       `fused_spatial_layer`, which no model calls, once at each of its
-           three flagship shapes
+           three flagship shapes; then the device kernels of one call at each
+           shape from torch.profiler (after the counts are read), which must
+           be the staging's 4 (LayerNorm, QKV product, attention,
+           out-projection)
   geometry_wiring
            a small DUSt3R (128 wide, 2 heads of 64, 128x512 input: S = 256)
            whose every attention takes `fullkv_attention`, on the card
@@ -214,20 +217,25 @@ Phases, each printing JSON lines:
            phase above launched it with (all eight kernels, all paths, the
            wiring runs and the sharded ranks' shapes included: under tp the
            local heads and widths), the two attention kernels once more near
-           one-hot (q scaled by 8) and the temporal layer once more near
-           one-hot (Wqkv scaled by 4): max_abs_err and rms_rel_err beside
+           one-hot (q scaled by 8), the temporal and spatial layers once more
+           near one-hot (Wqkv scaled by 4), GroupNorm once more on groups of
+           mean 100 and spread 1 in float32 and bf16 (GN_LARGE_MEAN_SITES):
+           max_abs_err and rms_rel_err beside
            their tolerances, kernel_ms (CUDA events, median of 10 after
            warm-up), plain_ms, library_ms (one PyTorch call computing the same
            function, or null), bound_ms (the DUSt3R sites of fullkv, up to
            batch 8, with SDPA as library_ms, like every fullkv site); for the
-           two attention kernels also
+           two attention kernels and the spatial layer also
            mufu_bound_ms, their exponentials over the card's MUFU rate (16
            per SM per clock at the card's maximum SM clock); for the FF,
            temporal and spatial layers also gemm_library_ms, their two
            products as F.linear calls (cuBLAS), and for the temporal layer
            attn_library_ms, F.scaled_dot_product_attention over the frames of
-           permuted (B, S, H, T, D) views: yardsticks for the layer's parts,
-           not library calls for the whole function (library_ms stays null);
+           permuted (B, S, H, T, D) views, and for the spatial layer
+           composed_library_ms, F.layer_norm, F.linear, SDPA on (B, H, S, D)
+           views and F.linear with the bias in turn: yardsticks for the
+           layer's parts or a chain of calls, not one library call for the
+           whole function (library_ms stays null);
            the training phases' sites are among them
 Every phase that drives a path sets the launch counts to 0 just before it and
 reads them just after.
@@ -239,7 +247,9 @@ each step there, as counted, and both directions' times; the fullkv row also lis
 under "dust3r_sites", with the launches of each geometry pass that ran them;
 every row lists the sites `sharded_tp`'s ranks launched it at under
 "tp_sites", with both ranks' launches; the fullkv row lists the stereo_tiled
-phase's 1152-token sites under "stereo_sites", with the launches of one pair),
+phase's 1152-token sites under "stereo_sites", with the launches of one pair;
+the GroupNorm row lists its large-mean checks under "large_mean_sites"; the
+spatial layer's row has composed_library_ms and mufu_bound_ms),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with no
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -315,7 +325,12 @@ KERNEL_GRAD_EXTRA = {"temporal_attention_fused": ((1, 40, 2560, 5, 64), (1, 40, 
 # routes path's ds1 site)
 PEAKY_SITES = {"fullkv_attention": (50, 2304, 2304, 10, 64),
                "dual_cross_attention": (50, 9216, 5, 64, 77, 256),
-               "fused_temporal_layer": (2, 25, 2304, 640, 10, 64)}
+               "fused_temporal_layer": (2, 25, 2304, 640, 10, 64),
+               "fused_spatial_layer": (50, 9216, 5, 64)}
+# GroupNorm on groups whose mean is large against their spread (x = 100 +
+# N(0, 1)), where E[x^2] - mean^2 cancels: kernel against twin in float32 and
+# bf16, with the SiLU (N, S, C, groups, itemsize, silu)
+GN_LARGE_MEAN_SITES = ((2, 64, 320, 32, 4, 1), (2, 64, 320, 32, 2, 1))
 # the kernels built around wgmma and TMA: their ptxas registers and spills
 # get a line of their own, and a spill fails the build phase
 WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel", "gemm_sm90_kernel",
@@ -386,6 +401,21 @@ def card_peaks(name: str):
     raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
+def nvidia_smi(fields: str, *fmt: str) -> str:
+    """The first card's `fields`, as nvidia-smi --query-gpu prints them."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                           "--format=" + ",".join(("csv", "noheader") + fmt)],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def mufu_exp_per_s(max_sm_mhz: float) -> float:
+    """Exponentials per second on the MUFU: 16 per SM per clock at the card's
+    maximum SM clock."""
+    import torch
+
+    return 16.0 * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_mhz * 1e6
+
+
 def bound(flops: float, nbytes: float, peaks) -> dict:
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -401,6 +431,95 @@ def nbytes(*ts) -> int:
 # --------------------------------------------------------------------------
 
 
+def seeded_randn(gen):
+    """randn(*shape, scale=1.0, dtype=bf16): normal draws on the card from
+    gen, scaled, in the dtype asked for."""
+    import torch
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+    return randn
+
+
+def check_kernel(name, site, got, ref, kernel, plain, library, flops, nb, *, peaks, mufu_rate,
+                 path_launches=0, plain_reps=3, max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7,
+                 variant=None, exps=None, extra=None) -> dict:
+    """A kernel's output `got` against its twin's `ref` and its times: the
+    kernel, the twin, the library call (or null), each timed callable of
+    `extra`, the bound from `flops` and `nb` bytes, and with `exps` the
+    exponentials over the MUFU's rate. within_limits() judges the result."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{name} at {site}: {got.dtype} {tuple(got.shape)} against "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    diff, ref = got.float() - ref.float(), ref.float()
+    # both sides round at the same points; a different f32 summation order
+    # can flip a bf16 rounding, worth 2^-8 of the value: allow 4 such
+    # roundings of the largest output, and an error RMS of 2^-7 of the
+    # output's RMS (rounding flips alone stay near 2^-9; a systematic
+    # error of 1% does not). A float32 site passes its own, smaller limits.
+    err, tol = diff.abs().max().item(), max_rel * ref.abs().max().item()
+    rms_rel = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+    del diff, ref
+    res = {"phase": "kernel", "name": name, "site": list(site), "variant": variant,
+           "path_launches": path_launches, "max_abs_err": err, "tol": tol,
+           "rms_rel_err": rms_rel, "rms_tol": rms_tol, "kernel_ms": time_ms(kernel),
+           "plain_ms": time_ms(plain, reps=plain_reps, warmup=1),
+           "library_ms": time_ms(library) if library is not None else None,
+           **bound(flops, nb, peaks)}
+    if exps is not None:
+        res["mufu_bound_ms"] = exps / mufu_rate * 1e3
+    for key, fn in (extra or {}).items():
+        res[key] = time_ms(fn)
+    return res
+
+
+def within_limits(res: dict) -> None:
+    if not (res["max_abs_err"] <= res["tol"] and res["rms_rel_err"] <= res["rms_tol"]):  # and NaN
+        raise AssertionError(f"{res['name']} at {res['site']}: max_abs_err {res['max_abs_err']} "
+                             f"(tol {res['tol']}), rms_rel_err {res['rms_rel_err']} "
+                             f"(tol {res['rms_tol']})")
+
+
+def spatial_layer_check(spatial_layer, randn, site, check, w_mul=None) -> dict:
+    """`fused_spatial_layer` of the module given (this checkout's, or another
+    tree's in scripts/time_spatial_layer.py) at site (B, S, heads, D) on
+    inputs from randn, Wqkv scaled by w_mul, through check (check_kernel's
+    arguments): against its twin, with its bound and MUFU bound, its two
+    products alone through cuBLAS (gemm_library_ms) and the function as a
+    chain of library calls (composed_library_ms): no single call computes
+    it, so library_ms is null."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    b, s, h, d = site
+    c = h * d
+    x = randn(b, s, c, scale=0.5)
+    lw, lb = 1 + randn(c, scale=0.1, dtype=torch.float32), randn(c, scale=0.1, dtype=torch.float32)
+    wqkv = randn(3 * c, c, scale=(w_mul or 1.0) * c ** -0.5)
+    wo, bo = randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
+    kw = dict(heads=h, dim_head=d)
+    args = (x, lw, lb, wqkv, wo, bo)
+    y = spatial_layer.fused_spatial_layer(*args, **kw)
+    ref = spatial_layer.fused_spatial_layer_plain(*args, **kw)
+    n = b * s
+    xn, att = randn(n, c), randn(n, c)  # operands of the two products' shapes
+
+    def composed():
+        xl = F.layer_norm(x, (c,), lw.to(bf), lb.to(bf), 1e-5)
+        q, k, v = F.linear(xl, wqkv).view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v)
+        return F.linear(a.transpose(1, 2).reshape(b, s, c), wo, bo)
+    return check("fused_spatial_layer", site, y, ref,
+                 lambda: spatial_layer.fused_spatial_layer(*args, **kw),
+                 lambda: spatial_layer.fused_spatial_layer_plain(*args, **kw), None,
+                 2.0 * n * c * 3 * c + 4.0 * b * h * s * s * d + 2.0 * n * c * c,
+                 nbytes(*args, y), plain_reps=2, variant=w_mul and f"peaky_wqkv{w_mul:g}",
+                 exps=float(b * h * s * s),
+                 extra={"gemm_library_ms": lambda: (F.linear(xn, wqkv), F.linear(att, wo)),
+                        "composed_library_ms": composed})
+
+
 def kernel_sites(peaks, gen, sites, mufu_rate):
     """Yield one result dict per (kernel, input shape) of `sites`, the shapes
     the path phases launched each kernel with (`kernels.launch_sites()`)."""
@@ -411,39 +530,14 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
         cross_attention, ff_layer, fullkv_attention, groupnorm, spatial_layer,
         temporal_attention, temporal_conv, temporal_layer)
 
-    dev, bf = "cuda", torch.bfloat16
+    bf = torch.bfloat16
+    randn = seeded_randn(gen)
 
-    def randn(*shape, scale=1.0, dtype=bf):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def check(name, site, got, ref, kernel, plain, library, flops, nb, plain_reps=3,
-              max_rel=4 * 2.0 ** -8, rms_tol=2.0 ** -7, variant=None, exps=None, extra=None):
-        if got.dtype != ref.dtype or got.shape != ref.shape:
-            raise AssertionError(f"{name} at {site}: {got.dtype} {tuple(got.shape)} against "
-                                 f"{ref.dtype} {tuple(ref.shape)}")
-        diff, ref = got.float() - ref.float(), ref.float()
-        # both sides round at the same points; a different f32 summation order
-        # can flip a bf16 rounding, worth 2^-8 of the value: allow 4 such
-        # roundings of the largest output, and an error RMS of 2^-7 of the
-        # output's RMS (rounding flips alone stay near 2^-9; a systematic
-        # error of 1% does not). A float32 site passes its own, smaller limits.
-        err, tol = diff.abs().max().item(), max_rel * ref.abs().max().item()
-        rms_rel = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
-        del diff, ref
-        res = {"phase": "kernel", "name": name, "site": list(site), "variant": variant,
-               "path_launches": 0 if variant else sites[name][site], "max_abs_err": err, "tol": tol,
-               "rms_rel_err": rms_rel, "rms_tol": rms_tol, "kernel_ms": time_ms(kernel),
-               "plain_ms": time_ms(plain, reps=plain_reps, warmup=1),
-               "library_ms": time_ms(library) if library is not None else None,
-               **bound(flops, nb, peaks)}
-        if exps is not None:
-            res["mufu_bound_ms"] = exps / mufu_rate * 1e3
-        for key, fn in (extra or {}).items():
-            res[key] = time_ms(fn)
+    def check(name, site, *args, variant=None, **kw):
+        res = check_kernel(name, site, *args, peaks=peaks, mufu_rate=mufu_rate, variant=variant,
+                           path_launches=0 if variant else sites[name][site], **kw)
         emit(res)
-        if not (err <= tol and rms_rel <= rms_tol):  # also catches NaN
-            raise AssertionError(f"{name} at {site}: max_abs_err {err} (tol {tol}), "
-                                 f"rms_rel_err {rms_rel} (tol {rms_tol})")
+        within_limits(res)
         return res
 
     for site in sites["temporal_conv3"]:
@@ -527,10 +621,14 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
 
     # (a tensor-parallel rank's site has its block of the channels and of
     # the 32 groups)
-    for site in sites["group_norm_fused"]:
+    for site, large_mean in ([(s, False) for s in sites["group_norm_fused"]]
+                             + [(s, True) for s in GN_LARGE_MEAN_SITES]):
         n, s, c, groups, itemsize, silu = site
         dtype = bf if itemsize == 2 else torch.float32
-        x = randn(n, s, c, scale=1.5, dtype=dtype) + 0.3
+        if large_mean:
+            x = (randn(n, s, c, dtype=torch.float32) + 100.0).to(dtype)
+        else:
+            x = randn(n, s, c, scale=1.5, dtype=dtype) + 0.3
         w = 1 + randn(c, scale=0.1, dtype=torch.float32)
         b = randn(c, scale=0.1, dtype=torch.float32)
         args = (x, w, b, groups, 1e-5, bool(silu))
@@ -547,7 +645,8 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
         yield check("group_norm_fused", site, y, ref,
                     lambda: groupnorm.group_norm_fused(*args),
                     lambda: groupnorm.group_norm_fused_plain(*args), library,
-                    8.0 * n * s * c, nbytes(x, w, b, y), **tols)
+                    8.0 * n * s * c, nbytes(x, w, b, y), variant=large_mean and "large_mean",
+                    **tols)
         del x, y, ref, xcf, args, library
     torch.cuda.empty_cache()
 
@@ -583,25 +682,12 @@ def kernel_sites(peaks, gen, sites, mufu_rate):
                     4.0 * b * s * h * t * t * d, nbytes(q, k, v, y))
         del q, k, v, y, ref, pq, pk, pv
 
-    for site in sites["fused_spatial_layer"]:
-        b, s, h, d = site
-        c = h * d
-        x = randn(b, s, c, scale=0.5)
-        lw, lb = 1 + randn(c, scale=0.1, dtype=torch.float32), randn(c, scale=0.1, dtype=torch.float32)
-        wqkv, wo, bo = randn(3 * c, c, scale=c ** -0.5), randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
-        kw = dict(heads=h, dim_head=d)
-        args = (x, lw, lb, wqkv, wo, bo)
-        y = spatial_layer.fused_spatial_layer(*args, **kw)
-        ref = spatial_layer.fused_spatial_layer_plain(*args, **kw)
-        n = b * s
-        xn, att = randn(n, c), randn(n, c)  # the two products alone through cuBLAS
-        yield check("fused_spatial_layer", site, y, ref,
-                    lambda: spatial_layer.fused_spatial_layer(*args, **kw),
-                    lambda: spatial_layer.fused_spatial_layer_plain(*args, **kw), None,
-                    2.0 * n * c * 3 * c + 4.0 * b * h * s * s * d + 2.0 * n * c * c,
-                    nbytes(*args, y), plain_reps=2,
-                    extra={"gemm_library_ms": lambda: (F.linear(xn, wqkv), F.linear(att, wo))})
-        del x, wqkv, wo, y, ref, args, xn, att
+    # each driven site, then one near one-hot site (Wqkv scaled by 4: logits
+    # 16 times larger, so the running maximum's rescale and the masking
+    # decide the result)
+    for site, w_mul in ([(s, None) for s in sites["fused_spatial_layer"]]
+                        + [(PEAKY_SITES["fused_spatial_layer"], 4.0)]):
+        yield spatial_layer_check(spatial_layer, randn, site, check, w_mul)
     torch.cuda.empty_cache()
 
 
@@ -936,6 +1022,27 @@ def cache_bytes(eng, gen, cache_dtype: str, guidance=None) -> dict:
             "gib": sum(nbytes(*c.values()) for c in caches) / 2 ** 30}
 
 
+def device_kernels_per_call(fn) -> int:
+    """The device kernels one call of fn launches, from torch.profiler. After
+    the path phases' profiler runs the op phase's window counted 3 of the
+    spatial layer's 4 kernels, alone or behind a spin kernel; behind a zero
+    fill it counts all 4. So a one-element zero fill goes first, and only
+    that fill (the window's first kernel, if it is a fill) is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    return len(kernels) - bool(kernels and "fill" in kernels[0].name.lower())
+
+
 def run_spatial_op(gen) -> tuple:
     """`fused_spatial_layer` as the stand-alone op it is (no model calls it, in
     either package): one call at each of its three flagship shapes."""
@@ -962,11 +1069,27 @@ def run_spatial_op(gen) -> tuple:
         del y
     counts = kernels.launch_counts()
     sites = {"all": kernels.launch_sites(), "steps": kernels.launch_sites()}
-    res = {"phase": "op", "op": "fused_spatial_layer", "outputs": outs, "launches": counts}
+    # the device kernels of one call at each shape, from torch.profiler
+    # (after the counts are read: these calls are no part of the path)
+    per_call = {}
+    for b, s, h, d in SPATIAL_OP_SHAPES:
+        c = h * d
+        args = (torch.zeros(b, s, c, dtype=torch.bfloat16, device="cuda"),
+                torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"),
+                torch.zeros(3 * c, c, dtype=torch.bfloat16, device="cuda"),
+                torch.zeros(c, c, dtype=torch.bfloat16, device="cuda"),
+                torch.zeros(c, dtype=torch.bfloat16, device="cuda"))
+        per_call[f"{b}x{s}x{h}x{d}"] = device_kernels_per_call(
+            lambda: spatial_layer.fused_spatial_layer(*args, heads=h, dim_head=d))
+        del args
+    res = {"phase": "op", "op": "fused_spatial_layer", "outputs": outs, "launches": counts,
+           "device_kernels_per_call": per_call}
     emit(res)
     if counts["fused_spatial_layer"] != len(SPATIAL_OP_SHAPES) or not all(
             o["finite"] and o["abs_mean"] > 0 for o in outs):
         raise AssertionError(f"op: {res}")
+    if any(n != 4 for n in per_call.values()):
+        raise AssertionError(f"op: four kernels a call expected: {res}")
     torch.cuda.empty_cache()
     return res, sites
 
@@ -3047,14 +3170,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     peaks = card_peaks(name)
-    max_sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    max_sm_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mufu_rate = 16.0 * sms * max_sm_mhz * 1e6  # exponentials per second
+    mufu_rate = mufu_exp_per_s(max_sm_mhz)
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "sms": sms, "max_sm_mhz": max_sm_mhz, "mufu_exp_per_s": mufu_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3251,12 +3371,17 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "mufu_bound_ms": top.get("mufu_bound_ms"),
             "library_ms": top["library_ms"],
-            **{key: top[key] for key in ("gemm_library_ms", "attn_library_ms") if key in top},
+            **{key: top[key] for key in ("gemm_library_ms", "attn_library_ms",
+                                         "composed_library_ms") if key in top},
             "ms_per_unet_eval": per_eval["kernel_ms"], "bound_ms_per_unet_eval": per_eval["bound_ms"],
             "backward": backward_row(kname, grad_worst, train_res),
         })
         if rows[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was never launched on the {path} path")
+    # GroupNorm at a large group mean, kernel against twin (float32, bf16)
+    next(r for r in rows if r["name"] == "group_norm_fused")["large_mean_sites"] = [
+        {k: r[k] for k in ("site", "max_abs_err", "tol", "rms_rel_err", "rms_tol", "kernel_ms")}
+        for r in results["group_norm_fused"] if r["variant"] == "large_mean"]
     # fullkv's DUSt3R sites: the launches of each geometry pass beside the times
     fullkv_row = next(r for r in rows if r["name"] == "fullkv_attention")
     fullkv_row["dust3r_sites"] = [

@@ -177,6 +177,23 @@ def test_group_norm_kernel(gen, n, s, c, dtype, silu, eps):
     assert torch.equal(got, again)  # no float atomics: a rerun gives the same bits
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_large_mean(gen, dtype):
+    """Groups whose mean (100) is large against their spread (1): the
+    kernel's variance about each group's first element against the twin's
+    (E[x^2] - mean^2 cancels there)."""
+    x = (_randn(gen, 2, 64, 320, dtype=torch.float32) + 100.0).to(dtype)
+    w = 1 + _randn(gen, 320, scale=0.1, dtype=torch.float32)
+    b = _randn(gen, 320, scale=0.1, dtype=torch.float32)
+    for silu in (False, True):
+        got = groupnorm.group_norm_fused(x, w, b, 32, 1e-5, silu)
+        ref = groupnorm.group_norm_fused_plain(x, w, b, 32, 1e-5, silu)
+        if dtype == torch.float32:
+            _assert_close(got, ref, max_rel=2.0 ** -14, rms_tol=2.0 ** -16)
+        else:
+            _assert_close(got, ref)
+
+
 @pytest.mark.parametrize("b,sq,h,d,lt,li", [(1, 200, 2, 64, 77, 16), (2, 128, 1, 128, 77, 16),
                                             (1, 300, 3, 64, 5, 1), (2, 640, 2, 64, 256, 256),
                                             (50, 9216, 5, 64, 77, 256), (2, 300, 2, 128, 77, 256),
@@ -227,17 +244,49 @@ def test_temporal_attention_kernel(gen, b, t, s, h, d):
     _assert_close(got, temporal_attention.temporal_attention_fused_plain(q, k, v))
 
 
-@pytest.mark.parametrize("b,s,h,d", [(2, 200, 2, 64), (1, 64, 1, 128), (4, 2304, 10, 64),
-                                     (50, 576, 20, 64)])
-def test_spatial_layer_kernel(gen, b, s, h, d):
+def _spatial_args(gen, b, s, h, d, w_mul=1.0):
     c = h * d
-    args = (_randn(gen, b, s, c, scale=0.5), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
-            _randn(gen, c, scale=0.1, dtype=torch.float32), _randn(gen, 3 * c, c, scale=c ** -0.5),
-            _randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1))
+    return (_randn(gen, b, s, c, scale=0.5), 1 + _randn(gen, c, scale=0.1, dtype=torch.float32),
+            _randn(gen, c, scale=0.1, dtype=torch.float32),
+            _randn(gen, 3 * c, c, scale=w_mul * c ** -0.5), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 200, 2, 64), (1, 64, 1, 128), (4, 2304, 10, 64),
+                                     (50, 576, 20, 64), (2, 9216, 5, 64), (2, 1000, 5, 64),
+                                     (2, 576, 20, 64), (1, 256, 4, 128)])
+def test_spatial_layer_kernel(gen, b, s, h, d):
+    """C = 128 to 1280, D = 128 at C = 128 and 512, the flagship's C = 320
+    at S = 9216, S = 200 and 1000 (no multiple of the 192-row GEMM tile or
+    the 128-row query tile: masked keys, rows not stored); a rerun gives
+    the same bits."""
+    args = _spatial_args(gen, b, s, h, d)
     n0 = spatial_layer.launches
     got = spatial_layer.fused_spatial_layer(*args, heads=h, dim_head=d)
     assert spatial_layer.launches == n0 + 1
     _assert_close(got, spatial_layer.fused_spatial_layer_plain(*args, heads=h, dim_head=d))
+    assert torch.equal(got, spatial_layer.fused_spatial_layer(*args, heads=h, dim_head=d))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 1000, 5, 64), (1, 200, 1, 128)])
+def test_spatial_layer_kernel_peaky_softmax(gen, b, s, h, d):
+    """Wqkv scaled by 4: logits 16 times larger, spanning many octaves, so
+    near one-hot rows, the running maximum's rescale and the masked keys
+    decide the result (scaling x would do nothing: the LayerNorm removes
+    it)."""
+    args = _spatial_args(gen, b, s, h, d, w_mul=4.0)
+    _assert_close(spatial_layer.fused_spatial_layer(*args, heads=h, dim_head=d),
+                  spatial_layer.fused_spatial_layer_plain(*args, heads=h, dim_head=d))
+
+
+def test_spatial_layer_kernels_per_call(gen):
+    """A call is the staging's four device kernels: LayerNorm, QKV product,
+    attention, out-projection."""
+    from chip_smoke import device_kernels_per_call
+
+    args = _spatial_args(gen, 2, 576, 5, 64)
+    assert device_kernels_per_call(
+        lambda: spatial_layer.fused_spatial_layer(*args, heads=5, dim_head=64)) == 4
 
 
 def test_wrappers_refuse_float32_on_the_card(gen):

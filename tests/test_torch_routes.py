@@ -75,6 +75,22 @@ def test_group_norm_fused_matches_pallas(dt, n, s, c, silu, eps):
     _close(got, ref, atol)
 
 
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_fused_large_mean_matches_default_path(silu):
+    """A group whose mean is large against its spread (x = 100 + N(0, 1)):
+    the twin against the JAX package's default path, which takes the mean of
+    squared deviations (the Pallas kernel is no reference here: it takes
+    E[x^2] - mean^2, 6.3e-3 away in f32). f32, the file's tolerance."""
+    rng = np.random.default_rng(4)
+    x = 100 + rng.standard_normal((2, 64, 320))
+    w, b = 1 + 0.1 * rng.standard_normal(320), 0.1 * rng.standard_normal(320)
+    f32 = (jnp.float32, torch.float32)
+    (xj, xt), (wj, wt), (bj, bt) = _both(x, *f32), _both(w, *f32), _both(b, *f32)
+    ref = jgn.group_norm_silu(xj, wj, bj, num_groups=32, eps=1e-5, with_silu=silu)
+    got = tgn.group_norm_fused(xt, wt, bt, num_groups=32, eps=1e-5, with_silu=silu)
+    _close(got, ref, DTYPES["f32"][2])
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("li", [16, 256])
 def test_dual_cross_attention_matches_pallas(dt, li):

@@ -16,7 +16,9 @@
 //     H100). The row lanes' partials meet in shared memory and are added in a
 //     fixed order per channel, then per group (a group need not be a whole
 //     vector: C / G = 10 at C = 320); one (sum, sumsq) pair per group goes to
-//     device memory.
+//     device memory. The sums are taken about a shift, k = the group's first
+//     element (row 0 of the sample, the group's first channel), which every
+//     block reads before it starts: sums of x - k and (x - k)^2.
 //  2. A grid-wide barrier (one counter and a generation word in device
 //     memory; the last block to arrive resets the counter and moves the
 //     generation on, so the next launch finds it ready; a wait that never
@@ -25,9 +27,11 @@
 //     issues them on the current stream, one after another.
 //  3. The fold: every block adds the partials of its sample in chunk order,
 //     the same sums in the same order in every block of the sample (no float
-//     atomics: a rerun gives the same bits), into mean and
-//     rsqrt(max(E[x^2] - mean^2, 0) + eps) per group, the TPU kernel's
-//     formula.
+//     atomics: a rerun gives the same bits), into mean = k + E[x - k] and
+//     rsqrt(max(E[(x - k)^2] - E[x - k]^2, 0) + eps) per group. The TPU
+//     kernel takes E[x^2] - mean^2, which cancels on a group whose mean is
+//     large against its spread; the shift keeps the one pass and agrees with
+//     the mean of squared deviations that the default paths take.
 //  4. Normalize: the rows kept in shared memory first, then the rest of the
 //     chunk re-read in the reverse of step 1's order, so that the rows read
 //     last in step 1 come from L2; y = (x - mean) * inv * scale + bias in
@@ -55,6 +59,7 @@ struct GnVec<bf16> {
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
   }
+  static __device__ __forceinline__ float one(const bf16* p) { return __bfloat162float(*p); }
   static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
     uint4 u;
     bf16* e = reinterpret_cast<bf16*>(&u);
@@ -72,6 +77,7 @@ struct GnVec<float> {
     v[2] = __uint_as_float(u.z);
     v[3] = __uint_as_float(u.w);
   }
+  static __device__ __forceinline__ float one(const float* p) { return *p; }
   static __device__ __forceinline__ uint4 pack(const float (&v)[4]) {
     return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
                       __float_as_uint(v[3]));
@@ -150,10 +156,12 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     const int W = min(GN_THREADS, CV - cv0), RP = GN_THREADS / W;
     const int tx = threadIdx.x % W, ty = threadIdx.x / W;  // ty == RP: no work
     const int col = (cv0 + tx) * V;
-    float sum[V], sq[V];
+    float sum[V], sq[V], sh[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) sum[i] = sq[i] = 0.f;
     if (ty < RP) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) sh[i] = GnVec<T>::one(xs + ((col + i) / cg) * cg);
       int r = r0 + ty;
       for (; r + (GN_UNROLL - 1) * RP < r1; r += GN_UNROLL * RP) {
         uint4 u[GN_UNROLL];
@@ -168,8 +176,9 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
           GnVec<T>::unpack(u[k], v);
 #pragma unroll
           for (int i = 0; i < V; ++i) {
-            sum[i] += v[i];
-            sq[i] += v[i] * v[i];
+            const float d = v[i] - sh[i];
+            sum[i] += d;
+            sq[i] += d * d;
           }
         }
       }
@@ -180,8 +189,9 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         GnVec<T>::unpack(u, v);
 #pragma unroll
         for (int i = 0; i < V; ++i) {
-          sum[i] += v[i];
-          sq[i] += v[i] * v[i];
+          const float d = v[i] - sh[i];
+          sum[i] += d;
+          sq[i] += d * d;
         }
       }
 #pragma unroll
@@ -239,9 +249,9 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         a += s_part[(ll * G + g) * 2];
         b += s_part[(ll * G + g) * 2 + 1];
       }
-      const float mean = a / count;
-      const float var = b / count - mean * mean;
-      s_stats[2 * g] = mean;
+      const float mean_d = a / count;
+      const float var = b / count - mean_d * mean_d;
+      s_stats[2 * g] = GnVec<T>::one(xs + g * cg) + mean_d;
       s_stats[2 * g + 1] = rsqrtf(fmaxf(var, 0.f) + eps);
     }
     __syncthreads();
