@@ -45,6 +45,7 @@ from viewcrafter_tpu_torch.sampling.ddim import (
     ddim_sample_window,
     ddim_sample_window_pab,
 )
+from viewcrafter_tpu_torch.utils import profiling
 from viewcrafter_tpu_torch.utils.tokenizer import tokenize
 
 SUBMODELS = ("unet", "vae", "clip_text", "clip_vision", "resampler")
@@ -98,6 +99,7 @@ class VideoDiffusionEngine:
             self.clip_vision = CLIPVisionEncoder(cfg.clip_vision, dtype=dtype)
             self.resampler = Resampler(cfg.resampler, dtype=dtype)
         self._tp_unet = None  # (tp axis, the UNet cut to that axis's slice)
+        self.requests = 0  # `generate_staged` calls made: the running request number
         for name in SUBMODELS:
             cast_weights(getattr(self, name), dtype).eval().requires_grad_(False)
         d = cfg.diffusion
@@ -340,9 +342,11 @@ class VideoDiffusionEngine:
                               steps=noise.steps[:, batch, frame_block],
                               posterior=noise.posterior[batch, frame_block])
         frames = guidance_frames[batch].to(self.device)
-        z_cond = self.encode_frames(frames[:, frame_block], noise.posterior.to(self.device))
-        contexts = self.build_contexts(frames, cond_idx, token_ids[batch].to(self.device),
-                                       uncond_token_ids[batch].to(self.device), guidance)
+        with profiling.span("prepare.encode"):
+            z_cond = self.encode_frames(frames[:, frame_block], noise.posterior.to(self.device))
+        with profiling.span("prepare.contexts"):
+            contexts = self.build_contexts(frames, cond_idx, token_ids[batch].to(self.device),
+                                           uncond_token_ids[batch].to(self.device), guidance)
         return noise, z_cond, contexts
 
     @torch.no_grad()
@@ -385,6 +389,11 @@ class VideoDiffusionEngine:
         sampling step ("step", or "full" / "reuse" under attention reuse) and
         after "decode".
 
+        Spans (`utils/profiling.py`): the call is one `generate` span, the
+        root, numbered by `self.requests`, holding `prepare` (with
+        `prepare.encode` and `prepare.contexts`), the sampler's `step` spans
+        and `decode`; each closes before the `on_stage` call after it.
+
         mesh: a ("dp", "sp", "tp") DeviceMesh (`parallel.mesh.make_mesh`),
         every rank calling with the same arguments (the whole batch, and the
         same `noise` or an equally seeded `generator`). Frames shard over
@@ -398,54 +407,60 @@ class VideoDiffusionEngine:
         batch on every rank, as the JAX package returns a global array.
         Needs frames % sp == 0, batch % dp == 0 or K*batch % dp == 0, and tp
         dividing the UNet's 32 GroupNorm groups."""
-        b, t = guidance_frames.shape[:2]
-        k = guidance.num_branches
-        dp_axis, sp_axis, tp_axis = axis(mesh, "dp"), axis(mesh, "sp"), axis(mesh, "tp")
-        if mesh is not None:
-            dp, sp = dp_axis.size, sp_axis.size
-            if t % sp or (b % dp and (k * b) % dp):
-                raise ValueError(
-                    f"sharded generate needs frames {t} % sp {sp} == 0 and either batch {b} % "
-                    f"dp {dp} == 0 (sample-dp) or branches*batch {k * b} % dp == 0 (CFG-dp)")
-            self.unet_for(tp_axis)  # cut the UNet (or refuse the axis) before any work
-        # CFG-branch dp: a batch that cannot shard over dp (e.g. ONE sample
-        # on two devices) spreads its K tiled guidance branches over dp
-        cfg_dp = b % dp_axis.size != 0
-        batch = slice(None) if cfg_dp else dp_axis.block(b)
-        if attn_reuse_interval > 1:
-            # the JAX package caps a window near 24 steps for its serving
-            # watchdog; on the card the cap bounds nothing, but the same
-            # arithmetic keeps the cells where the JAX package puts them
-            chunk = attn_reuse_interval * max(1, 24 // attn_reuse_interval)
-        dd = DDIMSchedule.create(self.schedule, steps, eta=eta, timestep_spacing=timestep_spacing)
-        noise, z_cond, contexts = self._prepare(guidance_frames, token_ids, uncond_token_ids, dd,
-                                                guidance, cond_idx, noise, generator, batch,
-                                                sp_axis.block(t))
-        fs_val = float(fs if fs is not None else self.cfg.unet.default_fs)
-        denoise, denoise_full, denoise_reuse = self._denoise_fn(
-            z_cond, contexts, fs_val, guidance, cache_kinds=attn_reuse_kinds,
-            cache_sites=attn_reuse_sites, cache_dtype=attn_reuse_dtype,
-            branch_axis=dp_axis if cfg_dp else NO_AXIS, frame_axis=sp_axis, head_axis=tp_axis)
-        if on_stage is not None:
-            on_stage("prepare")
-        step_noise = noise.steps.to(self.device)
-        on_step = (lambda i, kind: on_stage(kind)) if on_stage else None
-        x = noise.x_T.to(self.device)
-        s0 = 0
-        while s0 < dd.num_steps:
-            num = min(chunk, dd.num_steps - s0)
+        self.requests += 1
+        with profiling.span("generate", request=self.requests):
+            b, t = guidance_frames.shape[:2]
+            k = guidance.num_branches
+            dp_axis, sp_axis, tp_axis = axis(mesh, "dp"), axis(mesh, "sp"), axis(mesh, "tp")
+            if mesh is not None:
+                dp, sp = dp_axis.size, sp_axis.size
+                if t % sp or (b % dp and (k * b) % dp):
+                    raise ValueError(
+                        f"sharded generate needs frames {t} % sp {sp} == 0 and either batch {b} % "
+                        f"dp {dp} == 0 (sample-dp) or branches*batch {k * b} % dp == 0 (CFG-dp)")
+                self.unet_for(tp_axis)  # cut the UNet (or refuse the axis) before any work
+            # CFG-branch dp: a batch that cannot shard over dp (e.g. ONE sample
+            # on two devices) spreads its K tiled guidance branches over dp
+            cfg_dp = b % dp_axis.size != 0
+            batch = slice(None) if cfg_dp else dp_axis.block(b)
             if attn_reuse_interval > 1:
-                x = ddim_sample_window_pab(denoise_full, denoise_reuse, x, dd,
-                                           lambda i: step_noise[i], s0, num,
-                                           attn_reuse_interval, guidance, on_step=on_step,
-                                           frame_axis=sp_axis)
-            else:
-                x = ddim_sample_window(denoise, x, dd, lambda i: step_noise[i], s0, num,
-                                       guidance, on_step=on_step, frame_axis=sp_axis)
-            s0 += num
-        video = self.decode_latents(x).float().clamp(-1.0, 1.0)
-        # under CFG-branch dp every dp rank holds the whole batch
-        video = sp_axis.gather(video, 1) if cfg_dp else gather_video_batch(video, mesh)
+                # the JAX package caps a window near 24 steps for its serving
+                # watchdog; on the card the cap bounds nothing, but the same
+                # arithmetic keeps the cells where the JAX package puts them
+                chunk = attn_reuse_interval * max(1, 24 // attn_reuse_interval)
+            dd = DDIMSchedule.create(self.schedule, steps, eta=eta,
+                                     timestep_spacing=timestep_spacing)
+            with profiling.span("prepare"):
+                noise, z_cond, contexts = self._prepare(
+                    guidance_frames, token_ids, uncond_token_ids, dd, guidance, cond_idx, noise,
+                    generator, batch, sp_axis.block(t))
+                fs_val = float(fs if fs is not None else self.cfg.unet.default_fs)
+                denoise, denoise_full, denoise_reuse = self._denoise_fn(
+                    z_cond, contexts, fs_val, guidance, cache_kinds=attn_reuse_kinds,
+                    cache_sites=attn_reuse_sites, cache_dtype=attn_reuse_dtype,
+                    branch_axis=dp_axis if cfg_dp else NO_AXIS, frame_axis=sp_axis,
+                    head_axis=tp_axis)
+            if on_stage is not None:
+                on_stage("prepare")
+            step_noise = noise.steps.to(self.device)
+            on_step = (lambda i, kind: on_stage(kind)) if on_stage else None
+            x = noise.x_T.to(self.device)
+            s0 = 0
+            while s0 < dd.num_steps:
+                num = min(chunk, dd.num_steps - s0)
+                if attn_reuse_interval > 1:
+                    x = ddim_sample_window_pab(denoise_full, denoise_reuse, x, dd,
+                                               lambda i: step_noise[i], s0, num,
+                                               attn_reuse_interval, guidance, on_step=on_step,
+                                               frame_axis=sp_axis)
+                else:
+                    x = ddim_sample_window(denoise, x, dd, lambda i: step_noise[i], s0, num,
+                                           guidance, on_step=on_step, frame_axis=sp_axis)
+                s0 += num
+            with profiling.span("decode"):
+                video = self.decode_latents(x).float().clamp(-1.0, 1.0)
+                # under CFG-branch dp every dp rank holds the whole batch
+                video = sp_axis.gather(video, 1) if cfg_dp else gather_video_batch(video, mesh)
         if on_stage is not None:
             on_stage("decode")
         return video

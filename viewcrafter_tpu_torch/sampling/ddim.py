@@ -11,6 +11,13 @@ that a test can hand the sampler the same numbers the JAX package draws.
 The per-step scalars are computed in float32 as the JAX package does.
 Under frame sharding (`frame_axis`) x holds this rank's frames, and the CFG
 rescale's statistics, which span the clip, are all-reduced over the axis.
+
+Spans (`utils/profiling.py`, recorded only inside `profiling.recording()`):
+each step is a `step` span (its index and kind: "step", "full" or "reuse")
+holding `step.unet`, the denoiser call, and `step.update`, the CFG combine,
+the rescale and the DDIM update; it closes before `on_step`. A full step of
+the attention-reuse window counts the bytes of the cache it returned as
+`reuse_cache_bytes`.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from viewcrafter_tpu_torch.ops.schedule import (
     predict_start_from_z_and_v,
     rescale_noise_cfg,
 )
+from viewcrafter_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,8 +121,10 @@ def make_ddim_step(denoise_fn: Callable, batch_size: int, schedule: DDIMSchedule
     parts = ddim_step_parts(batch_size, schedule, guidance, frame_axis)
 
     def step(i, x, noise):
-        v_all = denoise_fn(parts.tile_k(x), parts.t_batch_at(i, x.device))
-        return parts.update(i, x, parts.combine_cfg(v_all), noise)
+        with profiling.span("step.unet"):
+            v_all = denoise_fn(parts.tile_k(x), parts.t_batch_at(i, x.device))
+        with profiling.span("step.update"):
+            return parts.update(i, x, parts.combine_cfg(v_all), noise)
 
     return step
 
@@ -143,7 +153,8 @@ def ddim_sample_window(denoise_fn: Callable, x: torch.Tensor, schedule: DDIMSche
     step = make_ddim_step(denoise_fn, x.shape[0], schedule, guidance, frame_axis)
     x = x.float()
     for i in range(start, start + num_steps):
-        x = step(i, x, step_noise(i))
+        with profiling.span("step", step=i, kind="step"):
+            x = step(i, x, step_noise(i))
         if on_step is not None:
             on_step(i, "step")
     return x
@@ -169,12 +180,17 @@ def ddim_sample_window_pab(denoise_full: Callable, denoise_reuse: Callable, x: t
     cache = None
     for j in range(num_steps):
         i = start + j
-        x_k, t_k = parts.tile_k(x), parts.t_batch_at(i, x.device)
-        if j % interval == 0:
-            v_all, cache = denoise_full(x_k, t_k)
-        else:
-            v_all = denoise_reuse(x_k, t_k, cache)
-        x = parts.update(i, x, parts.combine_cfg(v_all), step_noise(i))
+        kind = "full" if j % interval == 0 else "reuse"
+        with profiling.span("step", step=i, kind=kind):
+            with profiling.span("step.unet"):
+                x_k, t_k = parts.tile_k(x), parts.t_batch_at(i, x.device)
+                if kind == "full":
+                    v_all, cache = denoise_full(x_k, t_k)
+                    profiling.count_bytes("reuse_cache_bytes", cache)
+                else:
+                    v_all = denoise_reuse(x_k, t_k, cache)
+            with profiling.span("step.update"):
+                x = parts.update(i, x, parts.combine_cfg(v_all), step_noise(i))
         if on_step is not None:
-            on_step(i, "full" if j % interval == 0 else "reuse")
+            on_step(i, kind)
     return x
