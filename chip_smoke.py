@@ -13,7 +13,8 @@ Phases, each printing JSON lines:
            attention) and any ptxas note on their wgmma; a spill fails
   wiring   a small config whose every gate takes the kernels: `generate` on
            the card against the same weights, noise and (fixed) prompt ids on
-           the CPU; three times: default routes, both opt-in routes on, and
+           the CPU; three times: default routes (the fused GroupNorm on, the
+           dual cross-attention off), both routes on, and
            routes on at 40 frames (where the temporal attentions leave the layer kernel for
            `temporal_attention_fused`)
   relpos_causal_wiring
@@ -25,8 +26,8 @@ Phases, each printing JSON lines:
   main     `VideoDiffusionEngine.generate` on the flagship `viewcrafter_25`
            (576x1024x25, B=1, K=2 CFG, 3 DDIM steps, seeded random weights),
            default routes: stage times, peak memory, output checks, launches
-           per UNet eval, and a torch.profiler breakdown of one more UNet
-           eval by kernel
+           per UNet eval (`group_norm_fused` once per GroupNorm, 166), and a
+           torch.profiler breakdown of one more UNet eval by kernel
   routes   the same through an engine built with cross_attn_impl="auto" and
            gn_fused=True, 2 steps, with its own profile
   pab      that engine through `generate_staged` with attn_reuse_interval=3
@@ -336,8 +337,11 @@ GN_LARGE_MEAN_SITES = ((2, 64, 320, 32, 4, 1), (2, 64, 320, 32, 2, 1))
 WGMMA_FUNCTIONS = ("fullkv_kernel", "dual_cross_kernel", "gemm_sm90_kernel",
                    "frame_attention_kernel")
 MAIN_KERNELS = ("temporal_conv3", "fused_ff_layer", "fullkv_attention", "fused_temporal_layer")
+# GroupNorms of the UNet at the released widths: the engine's default route
+# launches `group_norm_fused` once for each per UNet eval
+UNET_GROUP_NORMS = 166
 # the path whose launch count a kernel's row reports
-ROW_PATH = {**{k: "main" for k in MAIN_KERNELS}, "group_norm_fused": "routes",
+ROW_PATH = {**{k: "main" for k in MAIN_KERNELS}, "group_norm_fused": "main",
             "dual_cross_attention": "routes", "temporal_attention_fused": "long",
             "fused_spatial_layer": "op"}
 
@@ -796,14 +800,16 @@ def run_wiring(gen, routes: bool = False, frames: int = 8, guidance=None, unet_f
     if not (err <= tol and mean_err <= mean_tol):
         raise AssertionError(f"{phase}: card vs CPU f32 max {err} (tol {tol}), "
                              f"mean {mean_err} (tol {mean_tol})")
-    # the kernels this configuration must reach: the four of the default
-    # route (the layer kernel only up to 32 frames), the two route kernels
-    # when asked for, the temporal attention kernel past 32 frames; with a
-    # mask or a bias neither temporal kernel
+    # the kernels this configuration must reach: the four of the main path
+    # (the layer kernel only up to 32 frames) and the fused GroupNorm, the
+    # engine's default; the dual cross-attention when asked for, the temporal
+    # attention kernel past 32 frames; with a mask or a bias neither temporal
+    # kernel
     masked = any(unet_flags.values())
     expect = set(MAIN_KERNELS) - ({"fused_temporal_layer"} if frames > 32 or masked else set())
+    expect.add("group_norm_fused")
     if routes:
-        expect |= {"group_norm_fused", "dual_cross_attention"}
+        expect.add("dual_cross_attention")
     if frames > 32 and not masked:
         expect.add("temporal_attention_fused")
     wrong = [k for k, v in counts.items() if (v > 0) != (k in expect)]
@@ -1399,7 +1405,8 @@ def run_mode(phase: str, mode: str, images: list, fullkv_per_dust3r: list, frame
         raise AssertionError(f"{phase}: fullkv (encoder, decoder) launches per DUSt3R run "
                              f"{res['fullkv_encoder_decoder']}, expected {fullkv_per_dust3r}")
     require_launches(phase, res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
-                                  "fused_ff_layer": 33, "temporal_conv3": 88})
+                                  "fused_ff_layer": 33, "temporal_conv3": 88,
+                                  "group_norm_fused": None})
     del pipe
     torch.cuda.empty_cache()
     return res, sites, pass_sites
@@ -1502,7 +1509,8 @@ def run_checkpoint(gen, smi: str) -> tuple:
     if differ or not n_equal or not pipe.loaded_real_ckpt or fullkv != [24, 48]:
         raise AssertionError(f"checkpoint: {res}")
     require_launches("checkpoint", gen_res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
-                                             "fused_ff_layer": 33, "temporal_conv3": 88})
+                                             "fused_ff_layer": 33, "temporal_conv3": 88,
+                                             "group_norm_fused": UNET_GROUP_NORMS})
     del pipe, lvdm_src, dust3r_src
     torch.cuda.empty_cache()
     return res, merge_sites(dust3r_sites, gen_sites["all"])
@@ -1852,10 +1860,11 @@ def run_sharded_wiring(gen, phase: str = "sharded_wiring", cfg=None, world: int 
     """A small config whose every gate takes the kernels (default the wiring
     config) on `world` gloo ranks on cuda:0 at dp 2 x tp `tp` and sp the
     rest (one sample, so its two CFG branches over dp and its 8 frames over
-    sp), with both opt-in routes when `routes`, against the CPU's float32
+    sp), with both routes on when `routes`, against the CPU's float32
     run at `run_wiring`'s tolerance (twice the CPU bf16 run's own distance,
-    plus a floor). Every rank must launch the main path's kernels, and with
-    `routes` the two route kernels too. Returns the ranks' launch sites."""
+    plus a floor). Every rank must launch the main path's kernels and the
+    fused GroupNorm, and with `routes` the dual cross-attention too. Returns
+    the ranks' launch sites."""
     import torch
 
     from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, GenerateNoise, VideoDiffusionEngine
@@ -1884,7 +1893,7 @@ def run_sharded_wiring(gen, phase: str = "sharded_wiring", cfg=None, world: int 
                                 for n, sd in state.items()},
                 seed=SHARDED_SEED, steps=SHARDED_STEPS, guidance=GuidanceConfig(), dp=2, tp=tp,
                 routes=routes)
-    required = MAIN_KERNELS + (("group_norm_fused", "dual_cross_attention") if routes else ())
+    required = MAIN_KERNELS + ("group_norm_fused",) + (("dual_cross_attention",) if routes else ())
     _, sites = spawn_phase(phase, spec, world, "gloo", ["cuda:0"] * world, o32, yard, None,
                            required=required)
     return sites
@@ -3202,10 +3211,11 @@ def main() -> int:
     flagship = get_model_config("viewcrafter_25")
     main_res, main_sites, eng = drive("main", flagship, gen, FLAGSHIP_STEPS, routes=False,
                                       profile_what="one UNet eval, K=2 batched, flagship")
-    # the default route launches what it launched before the opt-in routes
-    # existed, and none of their kernels
+    # the default route: the main path's four kernels and the fused
+    # GroupNorm at every GroupNorm, no dual cross-attention
     require_launches("main", main_res, {"fullkv_attention": 15, "fused_temporal_layer": 34,
-                                        "fused_ff_layer": 33, "temporal_conv3": 88})
+                                        "fused_ff_layer": 33, "temporal_conv3": 88,
+                                        "group_norm_fused": UNET_GROUP_NORMS})
     del eng
     torch.cuda.empty_cache()
 
@@ -3214,7 +3224,8 @@ def main() -> int:
         profile_what="one UNet eval, K=2 batched, flagship, both routes on")
     require_launches("routes", routes_res, {
         "fullkv_attention": None, "fused_temporal_layer": 34, "fused_ff_layer": 33,
-        "temporal_conv3": 88, "group_norm_fused": None, "dual_cross_attention": None})
+        "temporal_conv3": 88, "group_norm_fused": UNET_GROUP_NORMS,
+        "dual_cross_attention": None})
     emit({"phase": "routes_vs_main", "main_s_per_step": main_res["s_per_step"],
           "routes_s_per_step": routes_res["s_per_step"],
           "main_prepare_decode_s": [main_res["prepare_s"], main_res["decode_s"]],

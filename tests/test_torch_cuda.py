@@ -194,6 +194,66 @@ def test_group_norm_kernel_large_mean(gen, dtype):
             _assert_close(got, ref)
 
 
+@pytest.mark.parametrize("preset", ["viewcrafter_25", "viewcrafter_25_512"])
+def test_default_engine_runs_every_group_norm_on_the_kernel(gen, preset):
+    """The engine's default route at the released widths: one UNet eval at
+    batch 2 (the two CFG branches, batched) and the VAE over a 25-frame clip
+    (encode and decode). No GroupNorm falls to the plain path
+    (`group_norm_plain` inside `recording()`), the UNet eval launches the
+    kernel once per GroupNorm32, and at every distinct shape they call, the
+    kernel matches its twin and the plain path (`group_norm_silu`) in bf16."""
+    from chip_smoke import fixed_prompt_ids
+    from viewcrafter_tpu_torch.config import get_model_config
+    from viewcrafter_tpu_torch.models.layers import GroupNorm32, group_norm_silu
+    from viewcrafter_tpu_torch.models.lvdm import VideoDiffusionEngine
+    from viewcrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from viewcrafter_tpu_torch.utils import profiling
+
+    cfg = get_model_config(preset)
+    eng = VideoDiffusionEngine(cfg)
+    eng.init_params(seed=0)
+    norms = {name: [m for m in getattr(eng, name).modules() if isinstance(m, GroupNorm32)]
+             for name in ("unet", "vae")}
+    assert all(m.fused for ms in norms.values() for m in ms)
+    sites = set()
+
+    def note(mod, args):
+        x = args[0]
+        sites.add((x.shape[0], x[0].numel() // x.shape[-1], x.shape[-1], x.dtype,
+                   mod.num_groups, mod.eps, mod.with_silu))
+
+    hooks = [m.register_forward_pre_hook(note) for ms in norms.values() for m in ms]
+    guidance = GuidanceConfig()
+    frames = torch.rand((1, cfg.video_length, cfg.height, cfg.width, 3), generator=gen,
+                        device="cuda") * 2 - 1
+    try:
+        with torch.no_grad(), profiling.recording() as rec:
+            z = eng.encode_frames(frames)
+            contexts = eng.build_contexts(frames, 0, fixed_prompt_ids(6, "cuda"),
+                                          fixed_prompt_ids(0, "cuda"), guidance)
+            denoise, _, _ = eng._denoise_fn(z, contexts, float(cfg.unet.default_fs), guidance)
+            x_k = torch.randn(z.shape, generator=gen, device="cuda").repeat(2, 1, 1, 1, 1)
+            n0 = groupnorm.launches
+            denoise(x_k, torch.full((2,), 999.0, device="cuda"))
+            unet_launches = groupnorm.launches - n0
+            eng.decode_latents(z)
+    finally:
+        for h in hooks:
+            h.remove()
+    del eng, denoise, z, contexts, x_k
+    torch.cuda.empty_cache()
+    assert guidance.num_branches == 2
+    assert unet_launches == len(norms["unet"])
+    assert "group_norm_plain" not in rec.counters
+    for n, s, c, dtype, groups, eps, silu in sorted(sites, key=str):
+        x = _randn(gen, n, s, c, scale=2.0, dtype=dtype) + 0.5
+        w = 1 + _randn(gen, c, scale=0.1, dtype=torch.float32)
+        b = _randn(gen, c, scale=0.1, dtype=torch.float32)
+        got = groupnorm.group_norm_fused(x, w, b, groups, eps, silu)
+        _assert_close(got, groupnorm.group_norm_fused_plain(x, w, b, groups, eps, silu))
+        _assert_close(got, group_norm_silu(x, w, b, groups, eps, silu))
+
+
 @pytest.mark.parametrize("b,sq,h,d,lt,li", [(1, 200, 2, 64, 77, 16), (2, 128, 1, 128, 77, 16),
                                             (1, 300, 3, 64, 5, 1), (2, 640, 2, 64, 256, 256),
                                             (50, 9216, 5, 64, 77, 256), (2, 300, 2, 128, 77, 256),

@@ -1,4 +1,4 @@
-"""The port's opt-in kernel routes against the JAX package, on the CPU.
+"""The port's kernel routes against the JAX package, on the CPU.
 
 Four kernel modules (`group_norm_fused`, `dual_cross_attention`,
 `temporal_attention_fused`, `fused_spatial_layer`): on the CPU each port
@@ -34,11 +34,13 @@ from viewcrafter_tpu_torch.config import get_model_config
 from viewcrafter_tpu_torch.convert import from_jax_params
 from viewcrafter_tpu_torch.models import layers as tlayers
 from viewcrafter_tpu_torch.models.lvdm import SUBMODELS, VideoDiffusionEngine
-from viewcrafter_tpu_torch.models.unet3d import CrossAttention
+from viewcrafter_tpu_torch.models.unet3d import CrossAttention, UNet3D
+from viewcrafter_tpu_torch.models.vae import AutoencoderKL
 from viewcrafter_tpu_torch.ops.kernels import cross_attention as tca
 from viewcrafter_tpu_torch.ops.kernels import groupnorm as tgn
 from viewcrafter_tpu_torch.ops.kernels import spatial_layer as tsl
 from viewcrafter_tpu_torch.ops.kernels import temporal_attention as tta
+from viewcrafter_tpu_torch.utils import profiling
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-4), "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -253,7 +255,7 @@ def test_unet_with_routes_matches_jax_default_route(tiny, monkeypatch):
 def test_routes_reach_the_wrappers_in_unet_and_vae(tiny, monkeypatch):
     """With the routes on, every GroupNorm of the UNet and the VAE and every
     image cross-attention whose shape passes the gate goes through the kernel
-    wrappers (on the CPU: their twins); with the defaults none does."""
+    wrappers (on the CPU: their twins); with both off none does."""
     params, cfg, inp = tiny
     calls = {"gn": 0, "dual": 0}
     real_gn, real_dual = tgn.group_norm_fused, tca.dual_cross_attention
@@ -271,7 +273,7 @@ def test_routes_reach_the_wrappers_in_unet_and_vae(tiny, monkeypatch):
     monkeypatch.setattr(tca, "supports_dual", lambda q_shape, lt, li: li > 0)
     args = tuple(torch.from_numpy(inp[k]) for k in ("x", "ts", "ctx"))
     z = torch.zeros((1,) + cfg.diffusion.latent_size + (cfg.vae.z_channels,))
-    plain = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu")
+    plain = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu", gn_fused=False)
     with torch.no_grad():
         plain.unet(*args)
         plain.vae.decode(z)
@@ -288,11 +290,74 @@ def test_routes_reach_the_wrappers_in_unet_and_vae(tiny, monkeypatch):
     assert calls["gn"] == n_gn_unet + n_gn_dec
 
 
+def test_default_engine_takes_the_group_norm_route_only(tiny, monkeypatch):
+    """A default-built engine sends every GroupNorm of the UNet and the VAE
+    decoder through `group_norm_fused`, once per GroupNorm32, and no
+    cross-attention through `dual_cross_attention`; `UNet3D` and
+    `AutoencoderKL` built on their own keep the plain GroupNorm."""
+    _, cfg, inp = tiny
+    calls = {"gn": 0, "dual": 0}
+    real_gn, real_dual = tgn.group_norm_fused, tca.dual_cross_attention
+
+    def gn(*a, **k):
+        calls["gn"] += 1
+        return real_gn(*a, **k)
+
+    def dual(*a, **k):
+        calls["dual"] += 1
+        return real_dual(*a, **k)
+
+    monkeypatch.setattr(tgn, "group_norm_fused", gn)
+    monkeypatch.setattr(tca, "dual_cross_attention", dual)
+    monkeypatch.setattr(tca, "supports_dual", lambda q_shape, lt, li: li > 0)
+    eng = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu")
+    n_gn_unet = sum(isinstance(m, tlayers.GroupNorm32) for m in eng.unet.modules())
+    n_gn_dec = sum(isinstance(m, tlayers.GroupNorm32) for m in eng.vae.decoder.modules())
+    z = torch.zeros((1,) + cfg.diffusion.latent_size + (cfg.vae.z_channels,))
+    with torch.no_grad(), profiling.recording() as rec:
+        eng.unet(*(torch.from_numpy(inp[k]) for k in ("x", "ts", "ctx")))
+        assert calls == {"gn": n_gn_unet, "dual": 0}
+        eng.vae.decode(z)
+    assert calls == {"gn": n_gn_unet + n_gn_dec, "dual": 0}
+    assert "group_norm_plain" not in rec.counters
+    direct = (UNet3D(cfg.unet, dtype=torch.float32), AutoencoderKL(
+        ch=cfg.vae.ch, ch_mult=cfg.vae.ch_mult, num_res_blocks=cfg.vae.num_res_blocks,
+        embed_dim=cfg.vae.embed_dim, z_channels=cfg.vae.z_channels, dtype=torch.float32))
+    assert not any(m.fused for net in direct for m in net.modules()
+                   if isinstance(m, tlayers.GroupNorm32))
+
+
+@pytest.mark.parametrize("n,takes", [(2, True), (3, False)])
+def test_group_norm_route_falls_back_where_the_kernel_cannot_run(monkeypatch, n, takes):
+    """On a CUDA tensor the route also needs at most as many samples as the
+    kernel's cooperative grid holds (`target_blocks`, here 2): past that it
+    runs `group_norm_silu`, where the kernel would raise, and counts one
+    `group_norm_plain` inside `recording()` (nothing outside it). The card is
+    stood in for: the gate's device test answers yes, and the wrapper on a
+    CPU tensor runs the twin."""
+    calls = []
+    real = tgn.group_norm_fused
+    monkeypatch.setattr(tgn, "group_norm_fused", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(tgn, "target_blocks", lambda itemsize: 2)
+    monkeypatch.setattr(tlayers, "_kernel_runs", lambda x: True)
+    gn = tlayers.set_group_norm_fused(tlayers.GroupNorm32(64, with_silu=True), True)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((n, 3, 5, 64))).bfloat16()
+    with torch.no_grad():
+        with profiling.recording() as rec:
+            got = gn(x)
+        gn(x)
+    assert len(calls) == 2 * takes
+    assert rec.counters.get("group_norm_plain", []) == ([] if takes else [1])
+    if not takes:
+        want = tlayers.group_norm_silu(x, gn.weight, gn.bias, 32, gn.eps, True)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
 def test_routes_add_no_parameters():
     """`convert.from_jax_params` maps every parameter the routes use: an
     engine built with the routes on has the state dict of one with them off."""
     cfg = get_model_config("viewcrafter_tiny")
-    off = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu")
+    off = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu", gn_fused=False)
     on = VideoDiffusionEngine(cfg, dtype=torch.float32, device="cpu", cross_attn_impl="auto",
                               gn_fused=True)
     for name in SUBMODELS:

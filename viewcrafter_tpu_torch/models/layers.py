@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from viewcrafter_tpu_torch.ops.kernels import ff_layer as _ff
 from viewcrafter_tpu_torch.ops.kernels import groupnorm as _gn
 from viewcrafter_tpu_torch.parallel.mesh import NO_AXIS, Axis
+from viewcrafter_tpu_torch.utils import profiling
 
 
 def group_norm_silu(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
@@ -49,10 +50,14 @@ class GroupNorm32(nn.Module):
     """GroupNorm in float32 with an optional fused SiLU; output in the
     input's dtype.
 
-    `fused` (off by default, as the JAX package's `VIEWCRAFTER_GN_FUSED`; set
-    through `set_group_norm_fused`) routes every input the kernel's gate takes
-    through `ops/kernels/groupnorm.py:group_norm_fused`: the CUDA kernels on
-    a CUDA tensor, their plain twin on a CPU tensor."""
+    `fused` (off by default here, on in the engine's UNet and VAE; set
+    through `set_group_norm_fused`) routes every input the route's gate takes
+    through `ops/kernels/groupnorm.py:group_norm_fused`: the CUDA kernel on
+    a CUDA tensor, its plain twin on a CPU tensor. The gate is the kernel's
+    (`supports_group_norm`), and on a CUDA tensor also at most as many
+    samples as its cooperative grid holds (`target_blocks`); anything else
+    takes `group_norm_silu`, counted as `group_norm_plain` inside
+    `profiling.recording()`."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  with_silu: bool = False):
@@ -65,12 +70,24 @@ class GroupNorm32(nn.Module):
     def forward(self, x):
         if self.fused:
             x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-            if _gn.supports_group_norm(x3.shape, self.num_groups, x.element_size()):
+            if self._route_takes(x3):
                 y = _gn.group_norm_fused(x3.contiguous(), self.weight, self.bias,
                                          self.num_groups, self.eps, self.with_silu)
                 return y.reshape(x.shape)
+            profiling.count("group_norm_plain", 1)
         return group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps,
                                self.with_silu)
+
+    def _route_takes(self, x3) -> bool:
+        itemsize = x3.element_size()
+        return _gn.supports_group_norm(x3.shape, self.num_groups, itemsize) and (
+            not _kernel_runs(x3) or x3.shape[0] <= _gn.target_blocks(itemsize))
+
+
+def _kernel_runs(x) -> bool:
+    """Whether `group_norm_fused` launches the CUDA kernel on x rather than
+    running its twin."""
+    return x.is_cuda
 
 
 def set_group_norm_fused(module: nn.Module, on: bool) -> nn.Module:

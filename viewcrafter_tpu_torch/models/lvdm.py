@@ -77,15 +77,18 @@ def resolve_device(device=None) -> torch.device:
 class VideoDiffusionEngine:
     """Owns the five submodels and the schedules.
 
-    Two opt-in kernel routes, both off by default as in the JAX package
-    (which reads environment variables for them; the port reads none):
-    cross_attn_impl="auto" runs every image cross-attention of the UNet whose
-    shape passes the gate as one `dual_cross_attention` call, and
-    gn_fused=True runs every GroupNorm of the UNet and the VAE through
-    `group_norm_fused`."""
+    Two kernel routes, constructor arguments (the JAX package reads
+    environment variables for them; the port reads none). gn_fused, on by
+    default, runs every GroupNorm of the UNet and the VAE that the route's
+    gate takes through `group_norm_fused` (`layers.GroupNorm32`);
+    gn_fused=False gives the plain path. cross_attn_impl="auto", off by
+    default as in the JAX package, runs every image cross-attention of the
+    UNet whose shape passes the gate as one `dual_cross_attention` call.
+    `UNet3D` and `AutoencoderKL` built directly, as `TrainLoop` builds its
+    UNet, keep both routes off."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16, device=None,
-                 cross_attn_impl: str = "xla", gn_fused: bool = False):
+                 cross_attn_impl: str = "xla", gn_fused: bool = True):
         self.cfg, self.dtype = cfg, dtype
         self.device = resolve_device(device)
         with torch.device(self.device):

@@ -12,11 +12,12 @@ temporal conv (`temporal_conv3`). Where the layer kernel's gate fails but
 attentions run that kernel between plain projections. The sites that fail a
 kernel's gate take plain torch ops, as the JAX package takes XLA there.
 
-Two opt-in routes, off by default as in the JAX package (which selects them
+Two routes, off by default here as in the JAX package (which selects them
 by environment variable; here they are constructor arguments):
 `cross_attn_impl` other than "xla" sends every image cross-attention whose
 shape passes the gate through `dual_cross_attention`, and `gn_fused=True`
-every GroupNorm through `group_norm_fused`.
+every GroupNorm through `group_norm_fused`. `VideoDiffusionEngine` builds
+its UNet with `gn_fused=True`.
 
 PAB-style attention reuse: `AttnCacheCtx` and the `attn_cache` /
 `collect_cache` arguments of `UNet3D.forward`, with the JAX package's site

@@ -20,8 +20,8 @@ Each pass runs
      device (`align/global_align.py`);
   3. the point cloud rasterized along the trajectory (`run_render`), then
      upsampled to the diffusion resolution;
-  4. `VideoDiffusionEngine.generate_staged` with the JAX package's default
-     routes (`run_diffusion`).
+  4. `VideoDiffusionEngine.generate_staged` with the engine's default
+     routes, the fused GroupNorm on (`run_diffusion`).
 
 Everything runs on the pipeline's device: with `device=None` that is the
 card, and without one the pipeline raises; the CPU only when asked for.
@@ -223,7 +223,7 @@ class ViewCrafterPipeline:
                                      min_conf_thr=opts.min_conf_thr)
         self.on_stage = on_stage
         self.generator = torch.Generator(device=self.device).manual_seed(opts.seed)
-        # the JAX package's default routes (no opt-in kernel route)
+        # the engine's default routes: the fused GroupNorm, the plain cross-attention
         self.engine = VideoDiffusionEngine(self.model_cfg, dtype=dtype, device=self.device)
         with torch.device(self.device):
             self.dust3r = Dust3rModel(self.dust3r_cfg, dtype=dtype)
